@@ -1,0 +1,145 @@
+"""Where the time of one serving batch goes, on one NVIDIA GPU.
+
+Builds the same run as chip_smoke.py's main phase (fashion Generator config,
+num_bf16_res=3, seeded random weights, seeded synthetic records, batch 8,
+upper mode) and prints:
+
+  - the card's name and power limit (nvidia-smi);
+  - per stage of TryonPipeline.run_batch -- upload (np.stack + H2D),
+    ingest_device, assemble_inputs_device, Generator -- the CUDA-event
+    time, median of REPEATS batches, for a tiled and a full-path batch,
+    beside the batch's host wall time;
+  - a torch.profiler trace of one tiled run_batch: device busy time (union
+    of kernel intervals) over the device span, the idle share, and kernel
+    time by kernel name.
+
+Run from the repository root:  python3 -m pasta_tpu_torch.cli.profile_serving
+"""
+
+from __future__ import annotations
+
+import collections
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+BATCH = 8
+REPEATS = 5
+TOP_KERNELS = 30
+
+
+def busy_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    busy = 0
+    cur_s = cur_e = None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def _stages(pipe, items, tiled):
+    from pasta_tpu_torch.serving import assemble_inputs_device, ingest_device
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ev[0].record()
+        batch = {k: torch.from_numpy(np.stack([it[k] for it in items])).to(
+            pipe.device) for k in items[0] if k not in ("tiles_fit", "cut_fits")}
+        ev[1].record()
+        ing = ingest_device(batch)
+        ev[2].record()
+        inputs = assemble_inputs_device(ing, pipe.mode, tiled=tiled)
+        ev[3].record()
+        pipe.model(noise_mode="const", **inputs)
+        ev[4].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)], wall * 1e3
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("profile_serving: needs an NVIDIA GPU", file=sys.stderr)
+        sys.exit(2)
+    from torch.profiler import ProfilerActivity, profile
+
+    from pasta_tpu_torch.data.synthetic import make_garment, make_person
+    from pasta_tpu_torch.models import Generator
+    from pasta_tpu_torch.ops import conv3x3
+    from pasta_tpu_torch.serving import TryonPipeline
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip(), flush=True)
+    conv3x3.build()
+    model = Generator(seed=0, num_bf16_res=3).eval().to("cuda")
+    pipe = TryonPipeline(model, mode="upper")
+    tiled_items = [pipe.prepare(make_person(s, jitter=3.0),
+                                make_garment(1000 + s, jitter=3.0))
+                   for s in range(BATCH)]
+    full_items = [pipe.prepare(make_person(s, jitter=40.0),
+                               make_garment(1000 + s, jitter=40.0))
+                  for s in range(100, 100 + BATCH)]
+    if not all(bool(it["tiles_fit"]) for it in tiled_items) or all(
+            bool(it["tiles_fit"]) for it in full_items):
+        raise RuntimeError("profile_serving: synthetic batches do not take "
+                           "the tiled and the full paste path")
+
+    for name, items, tiled in (("tiled", tiled_items, True),
+                               ("full", full_items, False)):
+        _stages(pipe, items, tiled)                      # warm-up
+        runs = [_stages(pipe, items, tiled) for _ in range(REPEATS)]
+        med = np.median(np.array([r[0] for r in runs]), axis=0)
+        walls = [r[1] for r in runs]
+        print(f"[stages] {name} B={BATCH}: upload {med[0]:.2f} ingest "
+              f"{med[1]:.2f} assemble {med[2]:.2f} generator {med[3]:.2f} ms "
+              f"(CUDA events, median of {REPEATS}) | wall median "
+              f"{np.median(walls):.2f} ms, all {[round(w, 1) for w in walls]}",
+              flush=True)
+
+    pipe.run_batch(tiled_items)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.run_batch(tiled_items)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.time_range.elapsed_us() > 0]
+    if not kernels:
+        raise RuntimeError("profile_serving: the trace holds no device time")
+    intervals = [(e.time_range.start, e.time_range.end) for e in kernels]
+    span = max(e for _, e in intervals) - min(s for s, _ in intervals)
+    busy = busy_us(intervals)
+    print(f"[profile] tiled B={BATCH}: wall {wall:.1f} ms | device busy "
+          f"{busy / 1e3:.1f} ms over a device span of {span / 1e3:.1f} ms, "
+          f"idle share {1 - busy / span:.3f} | {len(kernels)} device events",
+          flush=True)
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+    total = sum(v[0] for v in by_name.values())
+    print(f"[profile] kernel time {total / 1e3:.1f} ms; top {TOP_KERNELS}:")
+    for name, (us, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:TOP_KERNELS]:
+        print(f"{us / 1e3:9.2f} ms {100 * us / total:5.1f}% x{n:5d}  "
+              f"{name[:110]}")
+
+
+if __name__ == "__main__":
+    main()
