@@ -1,24 +1,41 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-Drives pasta_tpu_torch's 512px try-on serving path (TryonPipeline.run_batch,
-full fashion Generator config, num_bf16_res=3, seeded random weights,
-seeded synthetic records) on the card, in phases:
+Drives pasta_tpu_torch's two main paths on the card -- 512px try-on serving
+(TryonPipeline.run_batch, fashion Generator config, num_bf16_res=3) and the
+512px training step of the fashion preset (batch 4, G/D/DP phases, lazy R1,
+EMA, ADA) -- with seeded random weights and seeded synthetic inputs, in
+phases:
 
-  1. device  -- fails without CUDA; prints the card's name and power limit
-  2. build   -- compiles the K1 kernel (csrc/conv3x3.cu) from the sources
-  3. kernel  -- K1 against its plain PyTorch version at the main path's
-                shapes (bf16), with the error bound and CUDA-event times
-  4. main    -- run_batch on tiled and full-path batches; K1's launch count
-                must equal its in-scope convs per batch; img/s, peak memory
-  5. check   -- a small fp32 run on the card against the same run on the CPU
+  1. device      -- fails without CUDA; prints the card's name, power limit
+  2. build       -- compiles csrc/conv3x3.cu (K1) and csrc/shift.cu (K2, K3)
+                    from the sources, in parallel; registers and spills
+  3. kernel      -- K1 against its plain version at the serving shapes
+                    (bf16), with the error bound and CUDA-event times
+  4. main        -- run_batch on tiled and full-path batches; K1's launch
+                    count must equal its in-scope convs per batch
+  5. check       -- a small fp32 serving run on the card against the CPU
+  6. kernel-train -- K2 and K3 against their plain versions at the training
+                    shapes (bf16) and a small fp32 shape, their adjoint
+                    identity, K2 at the TPU probes' shapes (P1-P3), and K1's
+                    forward and input gradient against F.conv2d's autograd
+                    at the training shapes; times and HBM-floor shares
+  7. train       -- init_state on the fashion preset at batch 4, a warm-up
+                    step, 3 timed regular steps and one R1 step; finite
+                    metrics, the ADA controller's move, parameters changed,
+                    K1 forward / K1 dX / K2 / K3 launch counts; s/step,
+                    sec/kimg, peak memory
+  8. train-check -- one fp32 step's per-phase losses and gradients at the
+                    narrow 64px config (ada_p 0, no noise), card against CPU
 
 Run from the repository root:  python3 chip_smoke.py
-The last line of standard output is {"ok": true, "device": {...}}; the line
-before it, the K1 summary {"kernels": [...]}. Any failure exits non-zero.
+The last line of standard output is {"ok": true, "device": {...}}; the one
+before it the card's name and power limit, and before that the kernels'
+summary {"kernels": [...]}. Any failure exits non-zero.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import re
 import subprocess
@@ -38,6 +55,26 @@ N_TIMED = 3        # timed tiled batches after one warm-up batch
 # conv_mlp each; the spade encoder's two 64-ch resblock convs at 512^2 and
 # one 128-ch conv at 256^2.
 K1_PER_BATCH = 26
+
+# Launches of one regular training step of the fashion preset at batch 4
+# (mbstd group 4 divides every sub-batch, so the fake/real streams of one
+# phase share one augment and one D call; VGG on):
+#   K1 forward: Gmain's G 26 + image D 2 (b512.conv0, b256.conv0) + parsing
+#     D 2 + VGG19 6 (conv1_2, conv2_1, conv2_2 on the real and on the
+#     [img; finetune] stack); Dmain's no-grad G draw 26 + D 2; DPmain's
+#     style-branch draw 3 (b256.conv1, b512.conv0, b512.conv1) + DP 2.
+#   K1 dX: Gmain's backward through G 26, D 2, DP 2, VGG 3; Dmain 2; DPmain 2.
+#   K2: 2 passes per augment, in Gmain and in Dmain.  K3: Gmain's backward.
+# An R1 step adds, for each of Dr1 and DPr1: 2 K1 forwards and 6 dX (the
+# input gradient's 2, their 2 in the parameter backward, and the forward
+# convs' 2 there); Dr1 adds 2 K2 (augment) + 2 K2 (second backward through
+# K3) and 2 K3 (the input gradient through the augment).
+TRAIN_K1_FWD = 26 + 2 + 2 + 6 + 26 + 2 + 3 + 2        # 69
+TRAIN_K1_DX = 26 + 2 + 2 + 3 + 2 + 2                  # 37
+TRAIN_K2, TRAIN_K3 = 4, 2
+R1_K1_FWD, R1_K1_DX, R1_K2, R1_K3 = 4, 12, 4, 2
+TRAIN_BATCH = 4
+N_TRAIN_TIMED = 3
 
 
 def check(cond, msg):
@@ -74,18 +111,26 @@ def phase_device():
     return smi
 
 
-def phase_build(k1):
-    _, seconds, log = k1.build()
-    print(f"[build] K1 csrc/conv3x3.cu -> sm_90a in {seconds:.2f} s",
-          flush=True)
+def _print_ptxas(tag, log):
     name = "?"
     for line in log.splitlines():          # ptxas -v: registers and spills
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"ILi(\d+)ELi(\d+)E", m.group(1))
-            name = f"bf16<C_in {t[1]}, BN {t[2]}>" if t else "fp32"
+            name = m.group(1)[:60]
         elif "registers" in line or "spill stores" in line:
-            print(f"[build] {name}: {line.split(':', 1)[-1].strip()}")
+            print(f"[build] {tag} {name}: "
+                  f"{line.split(':', 1)[-1].strip()}")
+
+
+def phase_build(k1, shift):
+    """Both sources compile at once, one nvcc each."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        jobs = {"K1 csrc/conv3x3.cu": pool.submit(k1.build),
+                "K2/K3 csrc/shift.cu": pool.submit(shift.build)}
+        for tag, job in jobs.items():
+            _, seconds, log = job.result()
+            print(f"[build] {tag} -> sm_90a in {seconds:.2f} s", flush=True)
+            _print_ptxas(tag.split()[0], log)
 
 
 def phase_kernel(k1, batch):
@@ -238,24 +283,304 @@ def phase_check():
           f"values beyond 1e-2 of span (budget 2%)", flush=True)
 
 
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+
+
+def _shift_case(shift, rows, v_dim, out_w, dtype, g, dev, lines=1048,
+                center=1000):
+    """Inputs of K2/K3 shaped as on the training path: per-line positions
+    with a slope of at most 0.9 across each plane of `lines` lines (as
+    _warp_core_planar makes them), _shift_prep's per-block start and
+    one-hot tap pairs."""
+    line = torch.arange(rows, device=dev, dtype=torch.float32) % lines
+    slope = torch.rand(rows // lines + 1, device=dev, generator=g)[
+        torch.arange(rows, device=dev) // lines] * 2 - 1
+    q = (center + slope * 0.9 * line
+         + torch.rand(rows, device=dev, generator=g))
+    pad = (-rows) % 8
+    base, rem, w = shift._shift_prep(torch.cat([q, q[-1:].expand(pad)]),
+                                     out_w, v_dim)
+    start = shift._row_start(base, rem)[:rows].contiguous()
+    w = w[:rows].contiguous()
+    wide = torch.randn(rows, v_dim, device=dev, generator=g).to(dtype)
+    dout = torch.randn(rows, out_w, device=dev, generator=g).to(dtype)
+    return start, w, wide, dout
+
+
+def _bound(ref, dtype):
+    scale = ref.float().abs().max().item()
+    return (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * max(scale, 1e-6)
+
+
+def phase_kernel_train(k1, shift):
+    """K2/K3 at the training path's shapes, the probes' shapes, and K1's
+    forward and input gradient at the training shapes, each against its
+    plain version."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = {"K2": [], "K3": [], "K1": []}
+    v_dim, out_w = 3200, 1048
+    # R = n * 3 channels * 1048 lines: n = 4 (Dr1), 8 (Gmain), 12 (Dmain)
+    for n in (4, 8, 12):
+        r = n * 3 * 1048
+        start, w, wide, dout = _shift_case(shift, r, v_dim, out_w,
+                                           torch.bfloat16, g, dev)
+        for name, kern, plain, a, dim, nbytes in (
+                ("K2", shift.shift_fwd, shift._shift_rows_plain, wide, out_w,
+                 r * (out_w + 40) * 2 + r * out_w * 2),
+                ("K3", shift.shift_bwd, shift._shift_rows_adjoint_plain, dout,
+                 v_dim, r * out_w * 2 + r * v_dim * 2)):
+            got = kern(a, start, w, dim)
+            ref = plain(a, start, w, dim)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            bound = _bound(ref, torch.bfloat16)
+            check(err <= bound, f"{name} R={r}: err {err} > bound {bound}")
+            t_p1 = cuda_ms(lambda: plain(a, start, w, dim), 5)
+            t_k1 = cuda_ms(lambda: kern(a, start, w, dim), 20)
+            t_k2 = cuda_ms(lambda: kern(a, start, w, dim), 20)
+            t_p2 = cuda_ms(lambda: plain(a, start, w, dim), 5)
+            t_k, t_p = (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
+            floor = nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"[kernel-train] {name} R={r} V={v_dim} out_w={out_w} bf16 "
+                  f"max_abs_err {err:.4g} (bound {bound:.4g}) | {t_k:.4f} ms "
+                  f"= {100 * floor / t_k:.1f}% of the HBM floor "
+                  f"{floor:.4f} ms ({nbytes / t_k / 1e6:.0f} GB/s) | plain "
+                  f"{t_p:.4f} ms", flush=True)
+            rows[name].append((err, t_k, t_p))
+        del start, w, wide, dout
+    # fp32 at a small ragged shape, and the adjoint identity
+    start, w, wide, dout = _shift_case(shift, 1003, 640, 131, torch.float32,
+                                       g, dev, lines=200, center=200)
+    e2 = (shift.shift_fwd(wide, start, w, 131)
+          - shift._shift_rows_plain(wide, start, w, 131)).abs().max().item()
+    e3 = (shift.shift_bwd(dout, start, w, 640)
+          - shift._shift_rows_adjoint_plain(dout, start, w, 640)).abs().max(
+              ).item()
+    check(e2 <= 1e-5 and e3 <= 1e-5, f"K2/K3 fp32: {e2}, {e3}")
+    lhs = (shift.shift_fwd(wide, start, w, 131).double()
+           * dout.double()).sum().item()
+    rhs = (wide.double() * shift.shift_bwd(dout, start, w, 640).double()
+           ).sum().item()
+    check(abs(lhs - rhs) <= 1e-5 * abs(lhs), f"adjoint {lhs} vs {rhs}")
+    print(f"[kernel-train] fp32 R=1003 V=640 out_w=131: K2 err {e2:.3g} K3 "
+          f"err {e3:.3g} (bound 1e-5) | <K2 x, y> {lhs:.10g} vs <x, K3 y> "
+          f"{rhs:.10g}", flush=True)
+    # the TPU probes of K2: two taps, a start per row, fp32
+    for probe, r, k_hi in (("P1", 4 * 1048, 4224 - 3144 - 1),
+                           ("P2", 32, 4224 - 3144 - 257),
+                           ("P3", 32, 4224 - 3144 - 257)):
+        src = torch.rand(r, 4224, device=dev, generator=g)
+        k = torch.randint(0, k_hi, (r,), device=dev, generator=g,
+                          dtype=torch.int32)
+        f = torch.rand(r, device=dev, generator=g)
+        wt = torch.stack([1 - f, f], dim=1).contiguous()
+        idx = k.long()[:, None] + torch.arange(3144, device=dev)[None]
+        want = (torch.gather(src, 1, idx) * (1 - f)[:, None]
+                + torch.gather(src, 1, idx + 1) * f[:, None])
+        got = shift.shift_fwd(src, k, wt, 3144)
+        err = (got - want).abs().max().item()
+        check(err <= 1e-5, f"{probe}: err {err}")
+        t_k = cuda_ms(lambda: shift.shift_fwd(src, k, wt, 3144), 20)
+        t_p = cuda_ms(lambda: shift._shift_rows_plain(src, k, wt, 3144), 5)
+        nbytes = r * (3144 + 2) * 4 + r * 3144 * 4
+        print(f"[kernel-train] {probe} R={r} L=4224 W=3144 fp32 max_abs_err "
+              f"{err:.3g} | K2 {t_k:.4f} ms ({nbytes / t_k / 1e6:.0f} GB/s) "
+              f"| plain {t_p:.4f} ms", flush=True)
+        rows["K2"].append((err, t_k, t_p))
+    # K1 forward and input gradient at the training shapes, against
+    # F.conv2d's autograd: the fp32 G at batch 4, the bf16 D at Dmain's 12
+    F = torch.nn.functional
+    for n, hw, ci, co, dtype in ((4, 512, 128, 64, torch.float32),
+                                 (4, 512, 64, 64, torch.float32),
+                                 (4, 512, 64, 128, torch.float32),
+                                 (4, 256, 128, 128, torch.float32),
+                                 (12, 512, 64, 64, torch.bfloat16),
+                                 (12, 256, 128, 128, torch.bfloat16)):
+        x = torch.randn(n, hw + 2, hw + 2, ci, device=dev, generator=g).to(
+            dtype).requires_grad_(True)
+        wt = (torch.randn(3, 3, ci, co, device=dev, generator=g)
+              / (9 * ci) ** 0.5).to(dtype).requires_grad_(True)
+        dy = torch.randn(n, hw, hw, co, device=dev, generator=g).to(dtype)
+        y = k1.conv3x3_valid(x, wt)
+        dx, dw = torch.autograd.grad(y, (x, wt), dy)
+        xn = x.detach().permute(0, 3, 1, 2).requires_grad_(True)
+        wn = wt.detach().permute(3, 2, 0, 1).requires_grad_(True)
+        yr = F.conv2d(xn, wn)
+        dxr, dwr = torch.autograd.grad(yr, (xn, wn), dy.permute(0, 3, 1, 2))
+        dxr, dwr = dxr.permute(0, 2, 3, 1), dwr.permute(2, 3, 1, 0)
+        errs = []
+        for what, got, ref in (("y", y, yr.permute(0, 2, 3, 1)),
+                               ("dX", dx, dxr), ("dW", dw, dwr)):
+            err = (got.float() - ref.float()).abs().max().item()
+            bound = _bound(ref, dtype) * (1 if dtype == torch.bfloat16
+                                          else 10)
+            check(err <= bound, f"K1 {what} [{n},{hw + 2},{hw + 2},{ci}]->"
+                  f"{co} {dtype}: err {err} > bound {bound}")
+            errs.append(err)
+        xd, wd = x.detach(), wt.detach()
+        it = 2 if dtype == torch.float32 else 10
+        t = [cuda_ms(lambda: k1.conv3x3_valid_plain(xd, wd), it),
+             cuda_ms(lambda: k1.conv3x3_valid(xd, wd), it),
+             cuda_ms(lambda: torch.nn.grad.conv2d_input(
+                 xn.shape, wn.detach(), dy.permute(0, 3, 1, 2)), it),
+             cuda_ms(lambda: k1._input_grad(dy, wd, hw + 2), it)]
+        flop = 2 * n * hw * hw * ci * co * 9
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        print(f"[kernel-train] K1 {tag} [{n},{hw + 2},{hw + 2},{ci}]->{co} "
+              f"max_abs_err y {errs[0]:.3g} dX {errs[1]:.3g} dW "
+              f"{errs[2]:.3g} | fwd K1 {t[1]:.3f} ms "
+              f"({flop / t[1] / 1e9:.1f} TFLOP/s) plain {t[0]:.3f} ms | dX "
+              f"K1 {t[3]:.3f} ms ({flop / t[3] / 1e9:.1f} TFLOP/s) plain "
+              f"{t[2]:.3f} ms", flush=True)
+        rows["K1"].append((errs[1], t[3], t[2]))
+        del x, wt, dy, y, dx, dw, xn, wn, yr, dxr, dwr, xd, wd
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _flat_params(module):
+    return torch.cat([p.detach().float().reshape(-1)
+                      for p in module.parameters()])
+
+
+def phase_train():
+    """The fashion preset's training step at batch 4 on the card."""
+    from pasta_tpu_torch.cli import bench_train
+    from pasta_tpu_torch.train.config import fashion_config
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = fashion_config(batch_size=TRAIN_BATCH)
+    t0 = time.perf_counter()
+    state, step, batch, gen = bench_train.setup(cfg, "cuda")
+    before = [_flat_params(m) for m in (state.g, state.d, state.dp)]
+    n_params = [b.numel() for b in before]
+    print(f"[train] fashion preset batch {TRAIN_BATCH}: G {n_params[0] / 1e6:.2f}"
+          f" M, D {n_params[1] / 1e6:.2f} M, DP {n_params[2] / 1e6:.2f} M "
+          f"params, built in {time.perf_counter() - t0:.1f} s", flush=True)
+    delta = cfg.batch_size / (cfg.ada_kimg * 1000)
+    torch.cuda.reset_peak_memory_stats()
+    bench_train.reset_kernel_counts()
+
+    def stepped(p0, metrics):
+        """Finite metrics; ada_p moved by exactly one controller step, or
+        stayed where the clip to [0, 1] holds it."""
+        for k, v in metrics.items():
+            check(np.isfinite(v), f"train metric {k} = {v}")
+        p1 = metrics["ada_p"]
+        moved = abs(p1 - p0)
+        check(abs(moved - delta) <= 1e-12 or (moved == 0 and p1 in (0, 1)),
+              f"ada_p {p0} -> {p1}, step {delta}")
+        return p1
+
+    t0 = time.perf_counter()
+    _, metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    p = stepped(cfg.augment_p_init, metrics)
+    host, dev, steps = bench_train.timed_steps(step, state, batch, gen,
+                                               N_TRAIN_TIMED)
+    for metrics in steps:
+        p = stepped(p, metrics)
+    host_r1, dev_r1, (metrics_r1,) = bench_train.timed_steps(
+        step, state, batch, gen, 1, do_r1=True)
+    stepped(p, metrics_r1)
+    counts = bench_train.kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = [_flat_params(m) for m in (state.g, state.d, state.dp)]
+    for name, b, a in zip(("G", "D", "DP"), before, after):
+        check(bool(torch.isfinite(a).all()), f"{name} parameters not finite")
+        check(bool((a != b).any()), f"{name} parameters did not change")
+    n_steps = 1 + N_TRAIN_TIMED + 1       # every step runs the main phases
+    want = (n_steps * TRAIN_K1_FWD + R1_K1_FWD, n_steps * TRAIN_K1_DX
+            + R1_K1_DX, n_steps * TRAIN_K2 + R1_K2, n_steps * TRAIN_K3
+            + R1_K3)
+    check(counts == want, f"train launches K1 fwd/dX, K2, K3 {counts} != "
+          f"{want}")
+    print(f"[train] warm-up {t_warm:.2f} s | regular x{N_TRAIN_TIMED}: "
+          f"{host:.4f} s/step host, {dev:.4f} s/step CUDA events, "
+          f"{host * 1000 / cfg.batch_size:.1f} sec/kimg | R1 step "
+          f"{host_r1:.4f} s host, {dev_r1:.4f} s events | peak {peak:.2f} "
+          f"GiB | launches K1 fwd {counts[0]}, K1 dX {counts[1]}, K2 "
+          f"{counts[2]}, K3 {counts[3]} over {n_steps} steps | ada_p "
+          f"{state.ada_p:.6g} | r1 {metrics_r1['r1_penalty']:.4g} dp_r1 "
+          f"{metrics_r1['dp_r1_penalty']:.4g} | metrics {metrics}",
+          flush=True)
+    del state, step, batch, before, after
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_check():
+    """Per-phase losses and gradients of one fp32 step at the narrow 64px
+    config (ada_p 0, no noise) on the card against the same on the CPU,
+    which the CPU tests hold against the JAX package."""
+    from pasta_tpu_torch.losses.vgg import VGG19Features
+    from pasta_tpu_torch.train.config import smoke_config
+    from pasta_tpu_torch.train.state import batch_to, example_batch, init_state
+    from pasta_tpu_torch.train.steps import phase_losses
+
+    cfg = smoke_config(1, batch_size=4, use_noise=False, vgg_weight=20.0,
+                       vgg_bf16=False)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        state = init_state(cfg, seed=0, device=dev)
+        vgg = VGG19Features(seed=3).to(dev).requires_grad_(False)
+        batch = batch_to(example_batch(cfg, np.random.RandomState(0)), dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        res[dev] = phase_losses(cfg, state, batch, gen, vgg)
+    worst = []
+    for phase in res["cpu"]:
+        (lg, _, gg), (lc, _, gc) = res["cuda"][phase], res["cpu"][phase]
+        lerr = abs(lg.item() - lc.item()) / max(abs(lc.item()), 1e-6)
+        gnum = sum(((a.cpu() - b).square().sum() for a, b in zip(gg, gc)))
+        gden = sum((b.square().sum() for b in gc))
+        gerr = (gnum / gden.clamp_min(1e-30)).sqrt().item()
+        # the CPU tests' budgets: losses 1e-3 relative, gradients 2e-2 of
+        # their norm (the bf16 two-pass augment rounds differently)
+        check(lerr <= 1e-3 and gerr <= 2e-2,
+              f"train-check {phase}: loss rel {lerr}, grad rel {gerr}")
+        worst.append(f"{phase} loss {lerr:.2g} grad {gerr:.2g}")
+    print(f"[train-check] narrow 64px fp32 card vs CPU, relative: "
+          f"{' | '.join(worst)}", flush=True)
+
+
 def main():
     smi = phase_device()
+    from pasta_tpu_torch.ops import affine_warp as shift
     from pasta_tpu_torch.ops import conv3x3 as k1
 
-    phase_build(k1)
+    phase_build(k1, shift)
     rows = phase_kernel(k1, BATCH)
     launches = phase_main(k1, BATCH, N_TIMED)
     phase_check()
-    print(json.dumps({"kernels": [{
-        "name": "conv3x3_valid",
-        "route": "cuda",
-        "source": "pasta_tpu_torch/csrc/conv3x3.cu",
-        "replaces": "pasta_tpu/ops/pallas_conv.py:139",
-        "launches": launches,
-        "max_abs_err": max(r[0] for r in rows),
-        "ms": sum(r[1] for r in rows),
-        "plain_ms": sum(r[2] for r in rows),
-    }]}))
+    train_rows = phase_kernel_train(k1, shift)
+    counts = phase_train()
+    phase_train_check()
+    k1_rows = rows + train_rows["K1"]
+
+    def entry(name, source, replaces, launched, rs, **extra):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=launched,
+                    max_abs_err=max(r[0] for r in rs),
+                    ms=sum(r[1] for r in rs), plain_ms=sum(r[2] for r in rs),
+                    **extra)
+
+    print(json.dumps({"kernels": [
+        entry("conv3x3_valid", "pasta_tpu_torch/csrc/conv3x3.cu",
+              "pasta_tpu/ops/pallas_conv.py:139", launches + counts[0],
+              k1_rows, launches_serving=launches, launches_train=counts[0],
+              launches_dx=counts[1]),
+        entry("shift_fwd", "pasta_tpu_torch/csrc/shift.cu",
+              "pasta_tpu/ops/affine_warp.py:142", counts[2],
+              train_rows["K2"]),
+        entry("shift_bwd", "pasta_tpu_torch/csrc/shift.cu",
+              "pasta_tpu/ops/affine_warp.py:181", counts[3],
+              train_rows["K3"]),
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

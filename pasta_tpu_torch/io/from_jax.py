@@ -1,4 +1,5 @@
-"""Carry JAX-package generator weights into the port.
+"""Carry JAX-package weights (generator, discriminators, VGG19) into the
+port.
 
 `jax_to_state_dict` is the exact inverse of
 `pasta_tpu/io/torch_import.py::import_generator_state`: the variable tree
@@ -11,6 +12,11 @@ gives it) becomes a strict-loadable state dict for the port's `Generator`:
   * flax nn.Dense `linear/kernel` [I, O] -> torch `linear.weight` [O, I]
   * the `buffers` collection (noise_const, w_avg) -> buffers
   * resample_filter is a non-persistent buffer of the port (recomputed)
+
+`discriminator_jax_to_state_dict` inverts `import_discriminator_state`
+(the same rules, plus the epilogue fc: the JAX package flattens the 4x4
+features NHWC, the reference and the port NCHW), and
+`vgg19_jax_to_state_dict` inverts `losses/vgg.py::import_vgg19_torch_state`.
 """
 
 from __future__ import annotations
@@ -48,6 +54,40 @@ def jax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         for path, value in _flatten(variables.get(collection, {})):
             key, arr = _leaf_to_torch(path, value)
             state[key] = torch.from_numpy(np.array(arr))   # own, writable copy
+    return state
+
+
+_EPILOGUE_RESOLUTION = 4  # the discriminator epilogue sits at 4x4
+
+
+def discriminator_jax_to_state_dict(
+        variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX-package Discriminator variables (numpy leaves) -> port state
+    dict; the epilogue fc weight goes from HWC to CHW flatten order."""
+    state = jax_to_state_dict(variables)
+    w = state["b4.fc.weight"]
+    out_f, in_f = w.shape
+    side = _EPILOGUE_RESOLUTION
+    c = in_f // (side * side)
+    state["b4.fc.weight"] = (w.reshape(out_f, side, side, c)
+                             .permute(0, 3, 1, 2).reshape(out_f, in_f)
+                             .contiguous())
+    return state
+
+
+def vgg19_jax_to_state_dict(
+        variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX-package VGG19Features params ({"params": {"conv{i}_kernel",
+    "conv{i}_bias"}}) -> torchvision-keyed port state dict."""
+    state = {}
+    for name, value in variables["params"].items():
+        idx, leaf = name[len("conv"):].split("_")
+        value = np.asarray(value)
+        if leaf == "kernel":
+            state[f"features.{idx}.weight"] = torch.from_numpy(
+                np.array(value.transpose(3, 2, 0, 1)))
+        else:
+            state[f"features.{idx}.bias"] = torch.from_numpy(np.array(value))
     return state
 
 

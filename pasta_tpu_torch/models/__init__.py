@@ -1,5 +1,6 @@
 """Models of the port."""
 
+from .discriminator import Discriminator
 from .generator import Generator, SynthesisNetwork
 
-__all__ = ["Generator", "SynthesisNetwork"]
+__all__ = ["Discriminator", "Generator", "SynthesisNetwork"]

@@ -102,7 +102,11 @@ class SynthesisNetwork(nn.Module):
 
     def forward(self, ws, pose_feat, cat_feat, denorm_upper_input,
                 denorm_lower_input, denorm_upper_mask, denorm_lower_mask,
-                gt_parsing=None, noise_mode="random", generator=None):
+                gt_parsing=None, noise_mode="random", generator=None,
+                parsing_only=False):
+        """Returns (coarse img, finetune img, pred_parsing); with
+        parsing_only=True only the style branch runs and the result is
+        pred_parsing (what the parsing discriminator's phase uses)."""
         resolutions = self.resolutions
         ws = ws.float()
         cat_cast = {res: cat_feat[str(res)].to(self._blk_dtype(res))
@@ -126,6 +130,8 @@ class SynthesisNetwork(nn.Module):
             if res == resolutions[-2]:
                 x_256, img_256 = x, img
             w_idx += n_conv
+        if parsing_only:
+            return pred_parsing
 
         # Parsing-index map drives the SPADE texture branch.
         if gt_parsing is not None:
@@ -204,6 +210,28 @@ class Generator(nn.Module):
         """Compute dtype of the conditioning encoders: bf16 whenever the
         synthesis mixed-precision lever is on."""
         return torch.bfloat16 if self.num_bf16_res > 0 else torch.float32
+
+    def style_code(self, c, retain):
+        """The style code (the discriminators' conditioning) alone."""
+        stylecode, _ = self.style_encoding(c.to(self.enc_dtype),
+                                           retain.to(self.enc_dtype))
+        return stylecode.float()
+
+    def parsing(self, z, c, retain, pose, noise_mode="random",
+                generator=None):
+        """(pred_parsing, style code): the style branch of `forward`
+        without the SPADE texture branch, which the parsing logits do not
+        depend on."""
+        pose_feat = self.const_encoding(pose.to(self.enc_dtype))
+        stylecode, feats = self.style_encoding(c.to(self.enc_dtype),
+                                               retain.to(self.enc_dtype))
+        stylecode = stylecode.float()
+        ws = self.mapping(z, stylecode)
+        cat_feats = {str(f.shape[1]): f for f in feats}
+        pred_parsing = self.synthesis(
+            ws, pose_feat, cat_feats, None, None, None, None,
+            noise_mode=noise_mode, generator=generator, parsing_only=True)
+        return pred_parsing, stylecode
 
     def forward(self, z, c, retain, pose, denorm_upper_input,
                 denorm_lower_input, denorm_upper_mask, denorm_lower_mask,

@@ -174,3 +174,24 @@ class ResBlock(nn.Module):
         x = self.conv0(x)
         x = self.conv1(x, gain=math.sqrt(0.5))
         return y + x
+
+
+class MinibatchStdLayer(nn.Module):
+    """Append cross-minibatch stddev features (reference networks.py:
+    527-549). Groups are batch-strided: sample j is in group j % (N/G)."""
+
+    def __init__(self, group_size=4, num_channels=1):
+        super().__init__()
+        self.group_size, self.num_channels = group_size, num_channels
+
+    def forward(self, x):
+        n, h, w, c = x.shape
+        g = min(self.group_size, n) if self.group_size is not None else n
+        f = self.num_channels
+        y = x.reshape(g, n // g, h, w, f, c // f)
+        y = y - y.mean(dim=0, keepdim=True)
+        y = y.square().mean(dim=0)
+        y = torch.sqrt(y + 1e-8)
+        y = y.mean(dim=(1, 2, 4))                     # [n//g, F]
+        y = y[:, None, None, :].repeat(g, h, w, 1)    # [N, H, W, F]
+        return torch.cat([x, y.to(x.dtype)], dim=-1)

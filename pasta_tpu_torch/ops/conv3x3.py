@@ -23,43 +23,36 @@ conflict-free padded rows), with the next tap's weights copied (cp.async)
 while the current tap computes. wgmma, TMA and warp specialisation are
 later work; see csrc/conv3x3.cu for the tiling.
 
-On a CPU tensor the wrapper computes `conv3x3_valid_plain`; on a CUDA
-tensor it launches the kernel or raises -- it never falls back.
+`conv3x3_valid` is one torch.autograd.Function on every device: its
+forward launches K1 on a CUDA tensor and computes `conv3x3_valid_plain` on
+a CPU tensor (it never falls back); its input gradient is again a VALID
+3x3 conv -- dY padded by 2, the weights rotated 180 degrees with C_in and
+C_out swapped -- computed by the same Function, so it runs K1 and is
+itself differentiable (R1's double backward goes through it). dW is a
+plain differentiable expression (`torch.nn.grad.conv2d_weight`), as the
+JAX package leaves the weight gradient to XLA. A dX whose channels fall
+outside K1's scope (C_out not in {64, 128}) is the plain conv, chosen from
+the shape. `conv3x3_valid.launches` counts forward launches,
+`.launches_bwd` the launches made for input gradients.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 
 import torch
 import torch.nn.functional as F
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "conv3x3.cu")
-_BUILD_ROOT = os.path.join(_PKG, "_build")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+from ._build import load_library
+
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
-_lib = None
-_lib_lock = threading.Lock()
 
-
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin)")
-    return path
+def _bind(lib):
+    fn = lib.pasta_conv3x3_valid
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
 
 
 def build():
@@ -69,34 +62,7 @@ def build():
     ptxas's register and spill counts); the seconds are 0 and the output
     empty when a library built from the same source is already there.
     """
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib, 0.0, ""
-        with open(_SRC, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        out_dir = os.path.join(_BUILD_ROOT, digest)
-        so = os.path.join(out_dir, "libconv3x3.so")
-        seconds, log = 0.0, ""
-        if not os.path.exists(so):
-            os.makedirs(out_dir, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc()] + _NVCC_FLAGS + ["-Xptxas=-v"]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd + ["-o", tmp, _SRC],
-                                 capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {_SRC}:\n{log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        fn = lib.pasta_conv3x3_valid
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-        return lib, seconds, log
+    return load_library("conv3x3.cu", _bind)
 
 
 def in_scope(c_in, c_out):
@@ -135,18 +101,13 @@ def _check(x, w, out_w):
         raise ValueError("conv3x3_valid: x and w on different devices")
 
 
-def conv3x3_valid(x, w, out_w=None):
-    """VALID 3x3 conv: [N, H+2, W', C_in] x [3, 3, C_in, C_out] (HWIO)
-    -> [N, H, out_w, C_out]. K1 on CUDA tensors, the plain version on CPU
-    tensors."""
-    if x.device.type == "cpu":
-        return conv3x3_valid_plain(x, w, out_w)
-    out_w = x.shape[2] - 2 if out_w is None else out_w
+def _kernel(x, w, out_w):
+    """One launch of K1 into a fresh tensor (no autograd history)."""
     _check(x, w, out_w)
     lib, _, _ = build()
     n, hp, wp, ci = x.shape
     co = w.shape[3]
-    wk = w.to(x.dtype).contiguous()
+    wk = w.contiguous()
     if wk.data_ptr() % 16:
         raise ValueError("conv3x3_valid: w must be 16-byte aligned")
     out = torch.empty((n, hp - 2, out_w, co), dtype=x.dtype, device=x.device)
@@ -158,9 +119,76 @@ def conv3x3_valid(x, w, out_w=None):
     if err != 0:
         raise RuntimeError(f"conv3x3_valid: kernel launch failed, "
                            f"CUDA error {err}")
-    conv3x3_valid.launches += 1
     return out
 
 
-conv3x3_valid.launches = 0
+def _plain_route(x):
+    """CPU tensors take the plain version; every other device the kernel."""
+    return x.device.type == "cpu"
 
+
+def _launch(x, w, out_w, bwd):
+    if _plain_route(x):
+        return conv3x3_valid_plain(x, w, out_w)
+    out = _kernel(x, w, out_w)
+    if bwd:
+        conv3x3_valid.launches_bwd += 1
+    else:
+        conv3x3_valid.launches += 1
+    return out
+
+
+def _input_grad(dy, w, wp):
+    """dX of the VALID conv: a VALID 3x3 conv of dY padded by 2 with the
+    weights rotated 180 degrees and C_in/C_out swapped, cropped at
+    out_w + 2 columns and zero-padded back to the input width `wp`."""
+    out_w = dy.shape[2]
+    dyp = F.pad(dy, (0, 0, 2, 2, 2, 2))
+    wr = w.flip(0, 1).transpose(2, 3)
+    if in_scope(wr.shape[2], wr.shape[3]):
+        dx = _Conv3x3.apply(dyp, wr.contiguous(), out_w + 2, True)
+    else:          # C_out outside {64, 128}: K1 cannot take the dX shape
+        dx = conv3x3_valid_plain(dyp, wr)
+    return F.pad(dx, (0, 0, 0, wp - out_w - 2)) if wp > out_w + 2 else dx
+
+
+def _weight_grad(x, dy, w_shape):
+    """dW (HWIO) as a differentiable plain expression (cuDNN's weight
+    gradient on CUDA); only the columns up to out_w + 2 contribute."""
+    xs = x[:, :, :dy.shape[2] + 2].permute(0, 3, 1, 2)
+    kh, kw, ci, co = w_shape
+    dw = torch.nn.grad.conv2d_weight(xs, (co, ci, kh, kw),
+                                     dy.permute(0, 3, 1, 2))
+    return dw.permute(2, 3, 1, 0)
+
+
+class _Conv3x3(torch.autograd.Function):
+    """K1 (or its plain version on CPU tensors) with its gradients; `bwd`
+    marks the launches made for an input gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_w, bwd):
+        ctx.save_for_backward(x, w)
+        return _launch(x, w, out_w, bwd)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _input_grad(dy, w, x.shape[2])
+        if ctx.needs_input_grad[1]:
+            dw = _weight_grad(x, dy, w.shape)
+        return dx, dw, None, None
+
+
+def conv3x3_valid(x, w, out_w=None):
+    """VALID 3x3 conv: [N, H+2, W', C_in] x [3, 3, C_in, C_out] (HWIO)
+    -> [N, H, out_w, C_out], differentiable. K1 on CUDA tensors, the plain
+    version on CPU tensors."""
+    out_w = x.shape[2] - 2 if out_w is None else out_w
+    return _Conv3x3.apply(x, w.to(x.dtype), out_w, False)
+
+
+conv3x3_valid.launches = 0
+conv3x3_valid.launches_bwd = 0

@@ -43,6 +43,43 @@ def _get_filter_size(f):
     return int(f.shape[-1]), int(f.shape[0])
 
 
+class _FirConv(torch.autograd.Function):
+    """Depthwise FIR correlation (NCHW, groups = channels, stride) whose
+    gradient is the transposed correlation, and whose transposed twin's
+    gradient is it again: a pair like the shift kernels', so a double
+    backward (R1 through the discriminator's resampling) never
+    differentiates a grouped conv, which PyTorch does with one conv per
+    group. The filter is a constant."""
+
+    @staticmethod
+    def forward(ctx, x, f, stride):
+        ctx.save_for_backward(f)
+        ctx.stride, ctx.in_hw = stride, tuple(x.shape[2:])
+        return F.conv2d(x, f, stride=stride, groups=x.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        (f,) = ctx.saved_tensors
+        return _FirConvT.apply(g, f, ctx.stride, ctx.in_hw), None, None
+
+
+class _FirConvT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, f, stride, in_hw):
+        ctx.save_for_backward(f)
+        ctx.stride = stride
+        kh, kw = f.shape[2:]
+        pad = (in_hw[0] - ((g.shape[2] - 1) * stride[0] + kh),
+               in_hw[1] - ((g.shape[3] - 1) * stride[1] + kw))
+        return F.conv_transpose2d(g, f, stride=stride, groups=g.shape[1],
+                                  output_padding=pad)
+
+    @staticmethod
+    def backward(ctx, gg):
+        (f,) = ctx.saved_tensors
+        return _FirConv.apply(gg, f, ctx.stride), None, None, None
+
+
 def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
     """Pad, upsample, FIR-filter, and downsample a batch of NHWC images.
 
@@ -85,13 +122,13 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
         f = f.flip(list(range(f.ndim)))
     f = (f * (float(gain) ** (f.ndim / 2))).to(device=x.device, dtype=x.dtype)
     if f.ndim == 2:
-        x = F.conv2d(x, f[None, None].repeat(c, 1, 1, 1), groups=c,
-                     stride=(downy, downx))
+        x = _FirConv.apply(x, f[None, None].repeat(c, 1, 1, 1),
+                           (downy, downx))
     else:
-        x = F.conv2d(x, f[None, None, None].repeat(c, 1, 1, 1), groups=c,
-                     stride=(1, downx))
-        x = F.conv2d(x, f[None, None, :, None].repeat(c, 1, 1, 1), groups=c,
-                     stride=(downy, 1))
+        x = _FirConv.apply(x, f[None, None, None].repeat(c, 1, 1, 1),
+                           (1, downx))
+        x = _FirConv.apply(x, f[None, None, :, None].repeat(c, 1, 1, 1),
+                           (downy, 1))
     return x.permute(0, 2, 3, 1)
 
 

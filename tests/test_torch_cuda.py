@@ -74,3 +74,99 @@ def test_k1_raises_out_of_scope(cuda):
                     dtype=torch.bfloat16)[:, :, :, :64]
     with pytest.raises(ValueError):
         k1.conv3x3_valid(x, w.new_zeros(3, 3, 64, 64))
+
+
+# K2 / K3 (csrc/shift.cu) against their plain versions: ragged row counts
+# (not a multiple of the 8-row block), odd out_w, positions at both clamp
+# limits of _shift_prep and tap offsets past the per-block clamp (38).
+SHIFT_SHAPES = [(1003, 640, 131), (37, 384, 128), (8, 3200, 1048)]
+
+
+def _shift_inputs(rows, v_dim, out_w, dtype, cuda):
+    from pasta_tpu_torch.ops import affine_warp as aw
+
+    rng = np.random.RandomState(rows)
+    hi = v_dim - out_w - 42
+    q = rng.rand(rows) * hi
+    q[::5] = hi + 10.0             # past the upper clamp
+    q[1::7] = -3.0                 # below 0
+    q[2::3] += rng.rand(len(q[2::3])) * 60   # spreads past 38 taps
+    pad = (-rows) % 8
+    q = np.concatenate([q, np.repeat(q[-1:], pad)]).astype(np.float32)
+    base, rem, w = aw._shift_prep(torch.from_numpy(q), out_w, v_dim)
+    start = aw._row_start(base, rem)[:rows].contiguous().to(cuda)
+    w = w[:rows].contiguous().to(cuda)
+    a = torch.from_numpy(rng.randn(rows, v_dim).astype(np.float32))
+    d = torch.from_numpy(rng.randn(rows, out_w).astype(np.float32))
+    return start, w, a.to(cuda, dtype), d.to(cuda, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", SHIFT_SHAPES)
+def test_k2_k3_match_plain(cuda, dtype, shape):
+    from pasta_tpu_torch.ops import affine_warp as aw
+
+    rows, v_dim, out_w = shape
+    start, w, wide, dout = _shift_inputs(rows, v_dim, out_w, dtype, cuda)
+    n2, n3 = aw.shift_fwd.launches, aw.shift_bwd.launches
+    got2 = aw.shift_fwd(wide, start, w, out_w)
+    got3 = aw.shift_bwd(dout, start, w, v_dim)
+    torch.cuda.synchronize()
+    assert (aw.shift_fwd.launches, aw.shift_bwd.launches) == (n2 + 1, n3 + 1)
+    ref2 = aw._shift_rows_plain(wide, start, w, out_w)
+    ref3 = aw._shift_rows_adjoint_plain(dout, start, w, v_dim)
+    assert got2.shape == ref2.shape and got3.shape == ref3.shape
+    # both sides sum the taps in fp32 in the same order and round once
+    for got, ref in ((got2, ref2), (got3, ref3)):
+        scale = ref.float().abs().max().item()
+        bound = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-6) * scale
+        assert (got.float() - ref.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_k2_probe_two_taps(cuda):
+    """The probes' form: a start per row (not per 8-row block), 2 taps."""
+    from pasta_tpu_torch.ops import affine_warp as aw
+
+    rng = np.random.RandomState(7)
+    rows, length, width = 37, 520, 333
+    src = torch.from_numpy(rng.rand(rows, length).astype(np.float32)).to(cuda)
+    k = torch.from_numpy(rng.randint(0, length - width - 1, rows).astype(
+        np.int32)).to(cuda)
+    f = torch.from_numpy(rng.rand(rows).astype(np.float32)).to(cuda)
+    got = aw.shift_fwd(src, k, torch.stack([1 - f, f], 1).contiguous(), width)
+    idx = k.long()[:, None] + torch.arange(width, device=cuda)[None]
+    want = (torch.gather(src, 1, idx) * (1 - f)[:, None]
+            + torch.gather(src, 1, idx + 1) * f[:, None])
+    assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k1_input_grad_matches_plain(cuda, dtype, shape):
+    """dX and dW of the K1 Function against F.conv2d's autograd; dX runs
+    K1 when C_out is in {64, 128}, the plain conv otherwise."""
+    n, h, wp, ci, co, out_w = shape
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(n, h + 2, wp, ci).astype(np.float32))
+    w = torch.from_numpy((rng.randn(3, 3, ci, co) / np.sqrt(9 * ci))
+                         .astype(np.float32))
+    dy = torch.from_numpy(rng.randn(n, h, out_w, co).astype(np.float32))
+    xd = x.to(cuda, dtype).requires_grad_(True)
+    wd = w.to(cuda, dtype).requires_grad_(True)
+    before = k1.conv3x3_valid.launches_bwd
+    dx, dw = torch.autograd.grad(k1.conv3x3_valid(xd, wd, out_w=out_w),
+                                 (xd, wd), dy.to(cuda, dtype))
+    torch.cuda.synchronize()
+    assert k1.conv3x3_valid.launches_bwd == before + int(co in (64, 128))
+    xr = xd.detach().float().requires_grad_(True)
+    wr = wd.detach().float().requires_grad_(True)
+    dxr, dwr = torch.autograd.grad(
+        k1.conv3x3_valid_plain(xr, wr, out_w=out_w), (xr, wr),
+        dy.to(cuda).to(dtype).float())
+    for got, ref in ((dx, dxr), (dw, dwr)):
+        scale = ref.abs().max().item()
+        bound = 2.0 ** -7 * scale if dtype == torch.bfloat16 else 1e-5 * scale
+        assert (got.float() - ref).abs().max().item() <= bound

@@ -67,6 +67,38 @@ class TestUpfirdn2d:
         got = ops.upfirdn2d(tx, tf, padding=1, flip_filter=True)
         np.testing.assert_allclose(_np(got), _np(ref), rtol=1e-5, atol=1e-5)
 
+    @pytest.mark.parametrize("up,down", [(1, 1), (2, 1), (1, 2), (2, 2)])
+    @pytest.mark.parametrize("sep", [False, True])
+    def test_grad_vs_jax_vjp(self, up, down, sep):
+        """The FIR pair's backward (a transposed depthwise correlation)
+        against JAX's vjp, on odd sizes that leave a ragged stride edge."""
+        import jax
+
+        rng = np.random.RandomState(3)
+        x = rng.randn(2, 13, 11, 3).astype(np.float32)
+        taps = [1, 3, 3, 1, 2, 2, 1, 1] if sep else [1, 3, 3, 1]
+        kw = dict(up=up, down=down, padding=[1, 2, 2, 1], gain=2.0)
+        (jx,), (tx,) = _both(x)
+        ref, vjp = jax.vjp(lambda a: jops.upfirdn2d(
+            a, jops.setup_filter(taps), **kw), jx)
+        ct = rng.randn(*ref.shape).astype(np.float32)
+        (jg,) = vjp(jnp.asarray(ct))
+        tx.requires_grad_(True)
+        (g,) = torch.autograd.grad(
+            ops.upfirdn2d(tx, ops.setup_filter(taps), **kw),
+            tx, torch.from_numpy(ct))
+        np.testing.assert_allclose(_np(g), _np(jg), rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("up,down", [(2, 1), (1, 2)])
+    def test_gradgradcheck_fp64(self, up, down):
+        """R1 differentiates the discriminator's FIR filters twice."""
+        x = torch.from_numpy(np.random.RandomState(4).randn(1, 7, 6, 2))
+        f = ops.setup_filter([1, 3, 3, 1]).double()
+        fn = lambda a: ops.upfirdn2d(a, f, up=up, down=down, padding=1)
+        x.requires_grad_(True)
+        assert torch.autograd.gradcheck(fn, (x,))
+        assert torch.autograd.gradgradcheck(fn, (x,))
+
     @pytest.mark.parametrize("wrapper", ["upsample2d", "downsample2d",
                                          "filter2d"])
     def test_wrappers(self, wrapper):
