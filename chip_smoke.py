@@ -9,8 +9,10 @@ phases:
   1. device      -- fails without CUDA; prints the card's name, power limit
   2. build       -- compiles csrc/conv3x3.cu (K1) and csrc/shift.cu (K2, K3)
                     from the sources, in parallel; registers and spills
+                    (none allowed in K1's fp32 kernel), its blocks per SM
   3. kernel      -- K1 against its plain version at the serving shapes
-                    (bf16), with the error bound and CUDA-event times
+                    (bf16) and, in fp32, at two ragged shapes, with the
+                    error bound and CUDA-event times
   4. main        -- run_batch on tiled and full-path batches; K1's launch
                     count must equal its in-scope convs per batch
   5. check       -- a small fp32 serving run on the card against the CPU
@@ -18,7 +20,10 @@ phases:
                     shapes (bf16) and a small fp32 shape, their adjoint
                     identity, K2 at the TPU probes' shapes (P1-P3), and K1's
                     forward and input gradient against F.conv2d's autograd
-                    at the training shapes; times and HBM-floor shares
+                    at the training shapes (fp32 bound: 1e-5 of the output
+                    scale), the kernel alone and with the gradient's pad
+                    copies; every time beside its bound and, for K1, the
+                    one cuDNN call that computes the same
   7. train       -- init_state on the fashion preset at batch 4, a warm-up
                     step, 3 timed regular steps and one R1 step; finite
                     metrics, the ADA controller's move, parameters changed,
@@ -30,11 +35,16 @@ phases:
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; the one
 before it the card's name and power limit, and before that the kernels'
-summary {"kernels": [...]}. Any failure exits non-zero.
+summary {"kernels": [...]}: per kernel its launches on the main paths, the
+largest error against plain, and the sums over the shapes above of its time,
+plain's, the bound's (the larger of operations over the card's peak rate --
+989 TFLOP/s bf16, 67 fp32 -- and bytes, each input and output once, over
+3.35 TB/s) and the library call's. Any failure exits non-zero.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import json
 import re
@@ -71,6 +81,10 @@ K1_PER_BATCH = 26
 # K3) and 2 K3 (the input gradient through the augment).
 TRAIN_K1_FWD = 26 + 2 + 2 + 6 + 26 + 2 + 3 + 2        # 69
 TRAIN_K1_DX = 26 + 2 + 2 + 3 + 2 + 2                  # 37
+# Of those 106, fp32 (G and VGG19 run in fp32): G's 26 forward + 26 dX in
+# Gmain, 26 forward in Dmain's draw, 3 in DPmain's, VGG19's 6 forward + 3 dX;
+# the other 16 are D's and DP's, bf16: 4 x 2 forward and 4 x 2 dX.
+TRAIN_K1_FP32 = 26 + 26 + 26 + 3 + 6 + 3              # 90
 TRAIN_K2, TRAIN_K3 = 4, 2
 R1_K1_FWD, R1_K1_DX, R1_K2, R1_K3 = 4, 12, 4, 2
 TRAIN_BATCH = 4
@@ -96,6 +110,36 @@ def cuda_ms(fn, iters):
     return a.elapsed_time(b) / iters
 
 
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def turns(plain, kernel, iters):
+    """(kernel ms, plain ms) timed in turns plain-kernel-kernel-plain."""
+    p1 = cuda_ms(plain, iters)
+    k1 = cuda_ms(kernel, iters)
+    k2 = cuda_ms(kernel, iters)
+    p2 = cuda_ms(plain, iters)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def conv_bound(n, h, w_out, ci, co, dtype, in_elems, out_elems):
+    """(bound ms, what bounds it, FLOP) of a 3x3 conv or its input
+    gradient: 2*N*H*W*9*C_in*C_out operations at the dtype's peak against
+    input + weights + output once over the device memory rate."""
+    flop = 2 * n * h * w_out * 9 * ci * co
+    size = torch.finfo(dtype).bits // 8
+    t_ops = flop / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = (in_elems + 9 * ci * co + out_elems) * size / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            flop)
+
+
+def row(err, ms, plain_ms, bound_ms, bound_by, library_ms=None, dtype=None):
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, dtype=dtype)
+
+
 def phase_device():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -116,10 +160,14 @@ def _print_ptxas(tag, log):
     for line in log.splitlines():          # ptxas -v: registers and spills
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1)[:60]
+            name = re.sub(r"^_ZN\d+_GLOBAL__N_\w+?_cu_[0-9a-f]{8}\d+", "",
+                          m.group(1))[:60]
         elif "registers" in line or "spill stores" in line:
             print(f"[build] {tag} {name}: "
                   f"{line.split(':', 1)[-1].strip()}")
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            check(not (spill and "f32" in name and int(spill.group(1))),
+                  f"{name} spills: {line.strip()}")
 
 
 def phase_build(k1, shift):
@@ -131,12 +179,20 @@ def phase_build(k1, shift):
             _, seconds, log = job.result()
             print(f"[build] {tag} -> sm_90a in {seconds:.2f} s", flush=True)
             _print_ptxas(tag.split()[0], log)
+    lib = k1.build()[0]
+    for ci, co in ((64, 64), (64, 128), (128, 64), (128, 128)):
+        blocks = lib.pasta_conv3x3_f32_blocks_per_sm(ci, co)
+        check(blocks >= 2, f"K1 fp32 {ci}->{co}: {blocks} blocks per SM")
+        print(f"[build] K1 fp32 {ci}->{co}: {blocks} blocks of 256 threads "
+              f"per SM (occupancy calculator)", flush=True)
 
 
 def phase_kernel(k1, batch):
-    """K1 vs conv3x3_valid_plain in bf16 at the main path's shapes."""
+    """K1 vs conv3x3_valid_plain in bf16 at the serving path's shapes, and
+    its fp32 kernel at two ragged shapes."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    F = torch.nn.functional
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     shapes = [  # (N, H, W, C_in, C_out, SAME padding)
@@ -150,7 +206,7 @@ def phase_kernel(k1, batch):
         x = torch.randn(n, h, w, ci, device=dev, generator=g).to(torch.bfloat16)
         wt = (torch.randn(3, 3, ci, co, device=dev, generator=g)
               / (9 * ci) ** 0.5).to(torch.bfloat16)
-        xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1)) if same else x
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1)) if same else x
         got = k1.conv3x3_valid(xp, wt)
         plain = k1.conv3x3_valid_plain(xp, wt)
         ref32 = k1.conv3x3_valid_plain(xp.float(), wt.float())
@@ -164,28 +220,38 @@ def phase_kernel(k1, batch):
         check(err <= bound and err32 <= bound,
               f"K1 vs plain at {tuple(xp.shape)}->{co}: err {err} / fp32 "
               f"{err32} > bound {bound}")
-        iters = 10
-        t_plain1 = cuda_ms(lambda: k1.conv3x3_valid_plain(xp, wt), iters)
-        t_k1a = cuda_ms(lambda: k1.conv3x3_valid(xp, wt), iters)
-        t_k1b = cuda_ms(lambda: k1.conv3x3_valid(xp, wt), iters)
-        t_plain2 = cuda_ms(lambda: k1.conv3x3_valid_plain(xp, wt), iters)
-        t_k1 = (t_k1a + t_k1b) / 2
-        t_plain = (t_plain1 + t_plain2) / 2
-        flop = 2 * n * (xp.shape[1] - 2) * (xp.shape[2] - 2) * ci * co * 9
+        xn, wn = xp.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
+        t_k1, t_plain = turns(lambda: k1.conv3x3_valid_plain(xp, wt),
+                              lambda: k1.conv3x3_valid(xp, wt), 10)
+        t_lib = cuda_ms(lambda: F.conv2d(xn, wn), 10)
+        ho, wo = xp.shape[1] - 2, xp.shape[2] - 2
+        t_bound, by, flop = conv_bound(n, ho, wo, ci, co, torch.bfloat16,
+                                       xp.numel(), got.numel())
         print(f"[kernel] [{n},{xp.shape[1]},{xp.shape[2]},{ci}]->{co} "
               f"max_abs_err {err:.6g} (vs fp32 {err32:.6g}, bound "
               f"{bound:.6g}) | K1 {t_k1:.4f} ms {flop / t_k1 / 1e9:.1f} "
-              f"TFLOP/s | plain {t_plain:.4f} ms {flop / t_plain / 1e9:.1f} "
-              f"TFLOP/s", flush=True)
-        rows.append((err, t_k1, t_plain))
-        del x, xp, got, plain, ref32
-    # the fp32 FMA variant, at a short shape
-    x = torch.randn(2, 34, 70, 64, device=dev, generator=g)
-    wt = torch.randn(3, 3, 64, 100, device=dev, generator=g) / 24
-    e = (k1.conv3x3_valid(x, wt) - k1.conv3x3_valid_plain(x, wt)).abs().max()
-    check(e.item() <= 1e-4, f"K1 fp32 variant err {e.item()}")
-    print(f"[kernel] fp32 variant [2,34,70,64]->100 max_abs_err "
-          f"{e.item():.3g} (bound 1e-4)", flush=True)
+              f"TFLOP/s | plain {t_plain:.4f} ms | library (F.conv2d) "
+              f"{t_lib:.4f} ms | bound_ms {t_bound:.4f} ({by}, "
+              f"{100 * t_bound / t_k1:.1f}%)", flush=True)
+        rows.append(row(err, t_k1, t_plain, t_bound, by, t_lib,
+                        torch.bfloat16))
+        del x, xp, xn, got, plain, ref32
+    # the fp32 kernel at ragged shapes: C_out above 64 and not a multiple of
+    # 8; C_out not a multiple of 4 with an odd H and out_w < W' - 2
+    for n, hp, wp, ci, co, out_w in ((2, 34, 70, 64, 100, None),
+                                     (1, 11, 23, 128, 7, 15)):
+        x = torch.randn(n, hp, wp, ci, device=dev, generator=g)
+        wt = (torch.randn(3, 3, ci, co, device=dev, generator=g)
+              / (9 * ci) ** 0.5)
+        ref = k1.conv3x3_valid_plain(x, wt, out_w)
+        got = k1.conv3x3_valid(x, wt, out_w)
+        e = (got - ref).abs().max().item()
+        bound = _bound(ref, torch.float32)
+        check(got.shape == ref.shape and e <= bound,
+              f"K1 fp32 [{n},{hp},{wp},{ci}]->{co}: err {e} > {bound}")
+        print(f"[kernel] fp32 [{n},{hp},{wp},{ci}]->{co} out_w "
+              f"{ref.shape[2]} max_abs_err {e:.3g} (bound {bound:.3g}, 1e-5 "
+              f"of the output scale)", flush=True)
     torch.cuda.empty_cache()
     return rows
 
@@ -283,9 +349,6 @@ def phase_check():
           f"values beyond 1e-2 of span (budget 2%)", flush=True)
 
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-
-
 def _shift_case(shift, rows, v_dim, out_w, dtype, g, dev, lines=1048,
                 center=1000):
     """Inputs of K2/K3 shaped as on the training path: per-line positions
@@ -346,10 +409,10 @@ def phase_kernel_train(k1, shift):
             floor = nbytes / HBM_BYTES_PER_S * 1e3
             print(f"[kernel-train] {name} R={r} V={v_dim} out_w={out_w} bf16 "
                   f"max_abs_err {err:.4g} (bound {bound:.4g}) | {t_k:.4f} ms "
-                  f"= {100 * floor / t_k:.1f}% of the HBM floor "
-                  f"{floor:.4f} ms ({nbytes / t_k / 1e6:.0f} GB/s) | plain "
-                  f"{t_p:.4f} ms", flush=True)
-            rows[name].append((err, t_k, t_p))
+                  f"= {100 * floor / t_k:.1f}% of bound_ms {floor:.4f} "
+                  f"(bytes; {nbytes / t_k / 1e6:.0f} GB/s) | plain "
+                  f"{t_p:.4f} ms | library_ms null", flush=True)
+            rows[name].append(row(err, t_k, t_p, floor, "bytes"))
         del start, w, wide, dout
     # fp32 at a small ragged shape, and the adjoint identity
     start, w, wide, dout = _shift_case(shift, 1003, 640, 131, torch.float32,
@@ -386,10 +449,12 @@ def phase_kernel_train(k1, shift):
         t_k = cuda_ms(lambda: shift.shift_fwd(src, k, wt, 3144), 20)
         t_p = cuda_ms(lambda: shift._shift_rows_plain(src, k, wt, 3144), 5)
         nbytes = r * (3144 + 2) * 4 + r * 3144 * 4
+        floor = nbytes / HBM_BYTES_PER_S * 1e3
         print(f"[kernel-train] {probe} R={r} L=4224 W=3144 fp32 max_abs_err "
               f"{err:.3g} | K2 {t_k:.4f} ms ({nbytes / t_k / 1e6:.0f} GB/s) "
-              f"| plain {t_p:.4f} ms", flush=True)
-        rows["K2"].append((err, t_k, t_p))
+              f"| bound_ms {floor:.5f} (bytes) | plain {t_p:.4f} ms | "
+              f"library_ms null", flush=True)
+        rows["K2"].append(row(err, t_k, t_p, floor, "bytes"))
     # K1 forward and input gradient at the training shapes, against
     # F.conv2d's autograd: the fp32 G at batch 4, the bf16 D at Dmain's 12
     F = torch.nn.functional
@@ -415,28 +480,50 @@ def phase_kernel_train(k1, shift):
         for what, got, ref in (("y", y, yr.permute(0, 2, 3, 1)),
                                ("dX", dx, dxr), ("dW", dw, dwr)):
             err = (got.float() - ref.float()).abs().max().item()
-            bound = _bound(ref, dtype) * (1 if dtype == torch.bfloat16
-                                          else 10)
+            # y and dX are the kernel's: 1e-5 of the output scale in fp32.
+            # dW is cuDNN's on both sides, summed over N*H*W in another
+            # order: 1e-4.
+            bound = _bound(ref, dtype) * (10 if what == "dW" and dtype
+                                          == torch.float32 else 1)
             check(err <= bound, f"K1 {what} [{n},{hw + 2},{hw + 2},{ci}]->"
                   f"{co} {dtype}: err {err} > bound {bound}")
             errs.append(err)
         xd, wd = x.detach(), wt.detach()
-        it = 2 if dtype == torch.float32 else 10
-        t = [cuda_ms(lambda: k1.conv3x3_valid_plain(xd, wd), it),
-             cuda_ms(lambda: k1.conv3x3_valid(xd, wd), it),
-             cuda_ms(lambda: torch.nn.grad.conv2d_input(
-                 xn.shape, wn.detach(), dy.permute(0, 3, 1, 2)), it),
-             cuda_ms(lambda: k1._input_grad(dy, wd, hw + 2), it)]
-        flop = 2 * n * hw * hw * ci * co * 9
+        xnd, wnd, dyn = xn.detach(), wn.detach(), dy.permute(0, 3, 1, 2)
+        dyp = F.pad(dy, (0, 0, 2, 2, 2, 2))
+        wr = wd.flip(0, 1).transpose(2, 3).contiguous()
+        it = 5 if dtype == torch.float32 else 10
+        # forward: the wrapper is the kernel alone; plain adds the layout
+        # copy around cuDNN's call, the library time is that call alone
+        t_f, t_fp = turns(lambda: k1.conv3x3_valid_plain(xd, wd),
+                          lambda: k1.conv3x3_valid(xd, wd), it)
+        t_fl = cuda_ms(lambda: F.conv2d(xnd, wnd), it)
+        # dX: _input_grad pads dY, launches the kernel on the rotated
+        # weights; plain is the same expression through F.conv2d
+        t_x, t_xp = turns(
+            lambda: k1.conv3x3_valid_plain(F.pad(dy, (0, 0, 2, 2, 2, 2)), wr),
+            lambda: k1._input_grad(dy, wd, hw + 2), it)
+        t_xk = cuda_ms(lambda: k1._kernel(dyp, wr, hw + 2), it)
+        t_xl = cuda_ms(lambda: torch.nn.grad.conv2d_input(
+            xn.shape, wnd, dyn), it)
+        bf, by, flop = conv_bound(n, hw, hw, ci, co, dtype, x.numel(),
+                                  y.numel())
+        bx, _, _ = conv_bound(n, hw, hw, ci, co, dtype, dy.numel(),
+                              x.numel())
         tag = "fp32" if dtype == torch.float32 else "bf16"
         print(f"[kernel-train] K1 {tag} [{n},{hw + 2},{hw + 2},{ci}]->{co} "
               f"max_abs_err y {errs[0]:.3g} dX {errs[1]:.3g} dW "
-              f"{errs[2]:.3g} | fwd K1 {t[1]:.3f} ms "
-              f"({flop / t[1] / 1e9:.1f} TFLOP/s) plain {t[0]:.3f} ms | dX "
-              f"K1 {t[3]:.3f} ms ({flop / t[3] / 1e9:.1f} TFLOP/s) plain "
-              f"{t[2]:.3f} ms", flush=True)
-        rows["K1"].append((errs[1], t[3], t[2]))
-        del x, wt, dy, y, dx, dw, xn, wn, yr, dxr, dwr, xd, wd
+              f"{errs[2]:.3g} | fwd K1 {t_f:.3f} ms "
+              f"({flop / t_f / 1e9:.1f} TFLOP/s, {100 * bf / t_f:.1f}% of "
+              f"bound_ms {bf:.3f} {by}) plain {t_fp:.3f} library "
+              f"(F.conv2d) {t_fl:.3f} | dX K1 {t_x:.3f} ms "
+              f"({flop / t_x / 1e9:.1f} TFLOP/s, {100 * bx / t_x:.1f}% of "
+              f"bound_ms {bx:.3f}; kernel alone {t_xk:.3f}) plain {t_xp:.3f}"
+              f" library (conv2d_input) {t_xl:.3f}", flush=True)
+        rows["K1"].append(row(errs[0], t_f, t_fp, bf, by, t_fl, dtype))
+        rows["K1"].append(row(errs[1], t_x, t_xp, bx, by, t_xl, dtype))
+        del x, wt, dy, y, dx, dw, xn, wn, yr, dxr, dwr, xd, wd, xnd, wnd, dyn
+        del dyp, wr
     torch.cuda.empty_cache()
     return rows
 
@@ -446,7 +533,7 @@ def _flat_params(module):
                       for p in module.parameters()])
 
 
-def phase_train():
+def phase_train(k1):
     """The fashion preset's training step at batch 4 on the card."""
     from pasta_tpu_torch.cli import bench_train
     from pasta_tpu_torch.train.config import fashion_config
@@ -500,18 +587,23 @@ def phase_train():
             + R1_K3)
     check(counts == want, f"train launches K1 fwd/dX, K2, K3 {counts} != "
           f"{want}")
+    # R1 differentiates D and DP only (bf16): no fp32 launch is added
+    n_fp32 = k1.conv3x3_valid.launches_fp32
+    check(n_fp32 == n_steps * TRAIN_K1_FP32,
+          f"K1 fp32 launches {n_fp32} != {n_steps} x {TRAIN_K1_FP32}")
     print(f"[train] warm-up {t_warm:.2f} s | regular x{N_TRAIN_TIMED}: "
           f"{host:.4f} s/step host, {dev:.4f} s/step CUDA events, "
           f"{host * 1000 / cfg.batch_size:.1f} sec/kimg | R1 step "
           f"{host_r1:.4f} s host, {dev_r1:.4f} s events | peak {peak:.2f} "
           f"GiB | launches K1 fwd {counts[0]}, K1 dX {counts[1]}, K2 "
-          f"{counts[2]}, K3 {counts[3]} over {n_steps} steps | ada_p "
+          f"{counts[2]}, K3 {counts[3]} over {n_steps} steps (K1 fp32 "
+          f"{n_fp32}, bf16 {counts[0] + counts[1] - n_fp32}) | ada_p "
           f"{state.ada_p:.6g} | r1 {metrics_r1['r1_penalty']:.4g} dp_r1 "
           f"{metrics_r1['dp_r1_penalty']:.4g} | metrics {metrics}",
           flush=True)
     del state, step, batch, before, after
     torch.cuda.empty_cache()
-    return counts
+    return counts, n_fp32
 
 
 def phase_train_check():
@@ -558,22 +650,42 @@ def main():
     launches = phase_main(k1, BATCH, N_TIMED)
     phase_check()
     train_rows = phase_kernel_train(k1, shift)
-    counts = phase_train()
+    counts, n_fp32 = phase_train(k1)
     phase_train_check()
     k1_rows = rows + train_rows["K1"]
 
+    def total(rs, key):
+        return sum(r[key] for r in rs)
+
     def entry(name, source, replaces, launched, rs, **extra):
+        """Sums over the shapes held against plain above; `bound_by` is the
+        side (operations or bytes) that makes up more of the summed bound."""
+        by = collections.Counter()
+        for r in rs:
+            by[r["bound_by"]] += r["bound_ms"]
+        lib = [r["library_ms"] for r in rs]
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launched,
-                    max_abs_err=max(r[0] for r in rs),
-                    ms=sum(r[1] for r in rs), plain_ms=sum(r[2] for r in rs),
-                    **extra)
+                    max_abs_err=max(r["err"] for r in rs),
+                    ms=total(rs, "ms"), plain_ms=total(rs, "plain_ms"),
+                    bound_ms=total(rs, "bound_ms"),
+                    bound_by=by.most_common(1)[0][0],
+                    library_ms=None if None in lib else sum(lib), **extra)
 
+    fp32 = [r for r in k1_rows if r["dtype"] == torch.float32]
+    bf16 = [r for r in k1_rows if r["dtype"] == torch.bfloat16]
+    k1_total = counts[0] + counts[1]
     print(json.dumps({"kernels": [
         entry("conv3x3_valid", "pasta_tpu_torch/csrc/conv3x3.cu",
-              "pasta_tpu/ops/pallas_conv.py:139", launches + counts[0],
+              "pasta_tpu/ops/pallas_conv.py:139", launches + k1_total,
               k1_rows, launches_serving=launches, launches_train=counts[0],
-              launches_dx=counts[1]),
+              launches_dx=counts[1], launches_train_fp32=n_fp32,
+              launches_train_bf16=k1_total - n_fp32,
+              ms_fp32=total(fp32, "ms"), ms_bf16=total(bf16, "ms"),
+              bound_ms_fp32=total(fp32, "bound_ms"),
+              bound_ms_bf16=total(bf16, "bound_ms"),
+              library_ms_fp32=total(fp32, "library_ms"),
+              library_ms_bf16=total(bf16, "library_ms")),
         entry("shift_fwd", "pasta_tpu_torch/csrc/shift.cu",
               "pasta_tpu/ops/affine_warp.py:142", counts[2],
               train_rows["K2"]),

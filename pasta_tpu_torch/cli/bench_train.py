@@ -43,6 +43,7 @@ def reset_kernel_counts():
 
     conv3x3.conv3x3_valid.launches = 0
     conv3x3.conv3x3_valid.launches_bwd = 0
+    conv3x3.conv3x3_valid.launches_fp32 = 0
     affine_warp.shift_fwd.launches = 0
     affine_warp.shift_bwd.launches = 0
 

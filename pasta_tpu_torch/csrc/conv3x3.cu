@@ -27,7 +27,37 @@
 // over; the ragged H and W edges are masked instead of the TPU's
 // H % block_rows restriction.
 //
-// fp32 inputs take a plain FMA kernel: one thread per output element.
+// fp32 design: an implicit GEMM on the CUDA cores (FFMA; full fp32 products,
+// so R1's gradients keep their accuracy -- one-pass TF32 would keep about
+// three digits). The four training shapes are compute bound by ~10x
+// (154.6 GFLOP over 0.8 GB at [4,514,514,128]->64: 2.31 ms at the 67 TFLOP/s
+// fp32 peak against 0.24 ms of device memory traffic), so what counts is
+// FFMAs per load. A thread that reads both operands from global
+// memory does 0.5 FFMA per load and is bound by the load/store units; this
+// kernel reaches 19 FFMAs per shared-memory load instruction:
+//  - The image is taken as one flat run of positions q = y * W' + x. Output
+//    q reads inputs q + kr * W' + kc, so a block computes BMQ consecutive
+//    positions (256 at BN = 64, 128 at BN = 128) by BN channels whatever the
+//    row width: positions with x >= out_w are computed and not stored, a
+//    waste of 2 / W' (0.4% at 514, 0.8% at 258) where 2-D tiles of 128
+//    pixels waste 25% at the input gradient's 514-wide rows.
+//  - Each thread keeps an 8 x 8 accumulator tile in registers: two runs of 4
+//    consecutive positions (4 * tx and BMQ/2 + 4 * tx) by two runs of 4
+//    channels (4 * ty and BN/2 + 4 * ty), so that a warp's 16-byte
+//    shared-memory loads fall on consecutive addresses: no bank conflicts.
+//  - C_in is staged in chunks of CK = 8 channels through a two-stage
+//    cp.async ring (the whole slab in fp32 would not fit): per chunk the
+//    three tap rows' BMQ + 2 positions, transposed on the way in to
+//    [row][channel][position] (4-byte cp.async; row stride BMQ + 4 words
+//    keeps the transposed writes on 32 distinct banks), and the chunk's
+//    [9][CK][BN] weights beside it. The accumulators persist across chunks.
+//  - Along a row the 4 + 2 input values a thread loads for one channel and
+//    one run serve all three kc taps from registers: per (channel, kr) a
+//    thread makes 4 loads of A and 6 of B for 192 FFMAs.
+//  - 256 threads and at most 128 registers a thread, 86-98 KB of shared
+//    memory a block: two blocks per SM, one computing while the other waits
+//    for its copies. The epilogue writes 16-byte vectors straight from
+//    registers (a warp's store covers full 64-byte runs of channels).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -287,35 +317,256 @@ int launch_bf16(const void* x, const void* w, void* out, int n, int hp,
   return (int)cudaGetLastError();
 }
 
-__global__ void conv3x3_f32_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ w,
-                                   float* __restrict__ out,
-                                   int h, int hp, int wp, int ci, int co,
-                                   int out_w, long long total) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int o = (int)(idx % co);
-  const long long p = idx / co;
-  const int xo = (int)(p % out_w);
-  const long long nyy = p / out_w;
-  const int y = (int)(nyy % h);
-  const long long n = nyy / h;
-  float acc = 0.0f;
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const int bytes = valid ? 4 : 0;  // 0: zero-fill, nothing read
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(bytes));
+}
+
+__device__ __forceinline__ void lds128(float* r, const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
+}
+
+template <int CI, int BN>
+struct CfgF {
+  static constexpr int THREADS = 256;
+  static constexpr int NTY = BN / 8;          // thread columns (8 channels)
+  static constexpr int NTX = THREADS / NTY;   // thread rows (8 positions)
+  static constexpr int BMQ = NTX * 8;         // flat positions per block
+  static constexpr int HALF_M = BMQ / 2;
+  static constexpr int HALF_N = BN / 2;
+  static constexpr int CK = 8;                // input channels per stage
+  static constexpr int NCH = CI / CK;
+  static constexpr int SEG = BMQ + 2;         // positions one tap row reads
+  static constexpr int FILL_ITERS = (SEG + 31) / 32;
+  static constexpr int S = BMQ + 4;           // slab row stride, 4 mod 32
+  static constexpr int SLAB = 3 * CK * S;     // floats: [kr][c][position]
+  static constexpr int WTS = 9 * CK * BN;     // floats: [tap][c][channel]
+  static constexpr int STAGE = SLAB + WTS;
+  static constexpr int SMEM = 2 * STAGE * 4;
+  static_assert(S % 32 == 4 && 2 * SMEM + 2048 <= 232448, "two blocks an SM");
+};
+
+// Chunk c0..c0+CK of the input slab and of the weights -> one stage.
+// `src0` points at this thread's first element of chunk 0 (position q0 + jb,
+// channel c, with c = tid % 8 and jb = tid / 8); `lim` is the count of
+// positions from there to the end of the image.
+template <int CI, int BN>
+__device__ __forceinline__ void f32_load_chunk(
+    const float* __restrict__ src0, const float* __restrict__ w, float* stage,
+    int wp, int lim, int co, int c0, int tid) {
+  using C = CfgF<CI, BN>;
+  // Slab: thread (c, jb) copies positions jb, jb + 32, .. of each tap row;
+  // a warp reads 4 positions x 32 contiguous bytes and writes 32 banks.
+  const int c = tid & 7;
+  const int jb = tid >> 3;
+#pragma unroll
   for (int kr = 0; kr < 3; ++kr) {
-    for (int kc = 0; kc < 3; ++kc) {
-      const float* xs = x + ((n * hp + y + kr) * wp + xo + kc) * ci;
-      const float* ws = w + (size_t)((kr * 3 + kc) * ci) * co + o;
-      for (int c = 0; c < ci; ++c) acc = fmaf(xs[c], ws[(size_t)c * co], acc);
+    float* dst = stage + (kr * C::CK + c) * C::S + jb;
+    const float* src = src0 + c0 + kr * wp * CI;
+#pragma unroll
+    for (int it = 0; it < C::FILL_ITERS; ++it) {
+      if (it < C::FILL_ITERS - 1 || jb + 32 * it < C::SEG) {
+        const bool ok = kr * wp + 32 * it < lim;  // past the image: zeros
+        cp_async4(dst + 32 * it, ok ? src + 32 * it * CI : w, ok);
+      }
     }
   }
-  out[idx] = acc;
+  // Weights: rows tap * CK + c of [BN] channels. A thread keeps its column
+  // and walks the rows in steps that are whole taps (or whole fractions of
+  // one), so every offset below is a compile-time multiple of `co`.
+  float* wdst = stage + C::SLAB;
+  if ((co & 3) == 0) {
+    constexpr int V = BN / 4;                 // 16-byte vectors per row
+    constexpr int STEP = C::THREADS / V;      // rows per pass: 16 or 8
+    constexpr int ROWS = 9 * C::CK;
+    const int j = (tid % V) * 4;
+    const int row0 = tid / V;
+    const bool ok = j < co;
+    const float* src =
+        w + (size_t)((row0 / C::CK) * CI + c0 + row0 % C::CK) * co + j;
+#pragma unroll
+    for (int it = 0; it * STEP < ROWS; ++it) {
+      if ((it + 1) * STEP <= ROWS || row0 + it * STEP < ROWS)
+        cp_async16(wdst + (row0 + it * STEP) * BN + j,
+                   ok ? src + (it * STEP / C::CK) * CI * co : w, ok);
+    }
+  } else {
+    constexpr int STEP = C::THREADS / BN;     // rows per pass: 4 or 2
+    const int j = tid % BN;
+    const int row0 = tid / BN;                // < STEP, and STEP divides CK
+    const bool ok = j < co;
+    const float* src = w + (size_t)(c0 + row0) * co + j;
+#pragma unroll
+    for (int it = 0; it * STEP < 9 * C::CK; ++it) {
+      const int r = it * STEP;
+      cp_async4(wdst + (row0 + r) * BN + j,
+                ok ? src + ((r / C::CK) * CI + r % C::CK) * co : w, ok);
+    }
+  }
+}
+
+template <int CI, int BN>
+__global__ void __launch_bounds__(CfgF<CI, BN>::THREADS, 2)
+conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   float* __restrict__ out, int h, int hp, int wp, int co,
+                   int out_w) {
+  using C = CfgF<CI, BN>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* stages = reinterpret_cast<float*>(smem);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // A warp is 8 thread rows x 4 thread columns: its A loads read 128
+  // consecutive bytes (broadcast over the columns), its B loads 64.
+  constexpr int WX = C::NTX / 8;
+  const int tx = (warp % WX) * 8 + (lane & 7);
+  const int ty = (warp / WX) * 4 + (lane >> 3);
+  const int n = blockIdx.y;
+  const int q0 = blockIdx.x * C::BMQ;
+  const int lim = hp * wp - q0 - (tid >> 3);
+  const float* src0 =
+      x + ((size_t)n * hp * wp + q0 + (tid >> 3)) * CI + (tid & 7);
+
+  float acc[2][4][8];
+#pragma unroll
+  for (int g = 0; g < 2; ++g)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[g][i][j] = 0.0f;
+
+  f32_load_chunk<CI, BN>(src0, w, stages, wp, lim, co, 0, tid);
+  cp_async_commit();
+
+#pragma unroll 1
+  for (int ch = 0; ch < C::NCH; ++ch) {
+    if (ch + 1 < C::NCH) {
+      f32_load_chunk<CI, BN>(src0, w, stages + ((ch + 1) & 1) * C::STAGE, wp,
+                             lim, co, (ch + 1) * C::CK, tid);
+      cp_async_commit();
+      cp_async_wait<1>();               // this chunk has landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const float* as = stages + (ch & 1) * C::STAGE + 4 * tx;
+    const float* bs = stages + (ch & 1) * C::STAGE + C::SLAB + 4 * ty;
+#pragma unroll 4
+    for (int c = 0; c < C::CK; ++c) {
+#pragma unroll
+      for (int kr = 0; kr < 3; ++kr) {
+        // positions 4tx .. 4tx+5 and BMQ/2 + the same, at channel c
+        float a[2][8];
+        const float* ap = as + (kr * C::CK + c) * C::S;
+        lds128(a[0], ap);
+        lds128(a[0] + 4, ap + 4);
+        lds128(a[1], ap + C::HALF_M);
+        lds128(a[1] + 4, ap + C::HALF_M + 4);
+#pragma unroll
+        for (int kc = 0; kc < 3; ++kc) {
+          float b[8];
+          const float* bp = bs + ((kr * 3 + kc) * C::CK + c) * BN;
+          lds128(b, bp);
+          lds128(b + 4, bp + C::HALF_N);
+#pragma unroll
+          for (int g = 0; g < 2; ++g)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                acc[g][i][j] = fmaf(a[g][i + kc], b[j], acc[g][i][j]);
+        }
+      }
+    }
+    __syncthreads();  // stage ch&1 is refilled at the next iteration
+  }
+
+  const bool vec = (co & 3) == 0;
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const int q = q0 + g * C::HALF_M + 4 * tx;
+    int y = q / wp;
+    int xo = q - y * wp;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (y < h && xo < out_w) {
+        float* o = out + (((size_t)n * h + y) * out_w + xo) * co;
+#pragma unroll
+        for (int hn = 0; hn < 2; ++hn) {
+          const int j0 = hn * C::HALF_N + 4 * ty;
+          const float* v = &acc[g][i][hn * 4];
+          if (vec) {
+            if (j0 < co)
+              *reinterpret_cast<float4*>(o + j0) =
+                  make_float4(v[0], v[1], v[2], v[3]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (j0 + e < co) o[j0 + e] = v[e];
+          }
+        }
+      }
+      if (++xo == wp) {
+        xo = 0;
+        ++y;
+      }
+    }
+  }
+}
+
+template <int CI, int BN>
+cudaError_t prepare_f32() {
+  static cudaError_t state = cudaErrorNotReady;  // set once per process
+  if (state == cudaErrorNotReady) {
+    state = cudaFuncSetAttribute(conv3x3_f32_kernel<CI, BN>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 CfgF<CI, BN>::SMEM);
+    if (state == cudaSuccess)
+      state = cudaFuncSetAttribute(
+          conv3x3_f32_kernel<CI, BN>,
+          cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+  }
+  return state;
+}
+
+template <int CI, int BN>
+int launch_f32(const void* x, const void* w, void* out, int n, int hp, int wp,
+               int co, int out_w, cudaStream_t s) {
+  using C = CfgF<CI, BN>;
+  const int h = hp - 2;
+  cudaError_t err = prepare_f32<CI, BN>();
+  if (err != cudaSuccess) return (int)err;
+  const int m_total = (h - 1) * wp + out_w;   // flat positions that hold output
+  dim3 grid((m_total + C::BMQ - 1) / C::BMQ, n);
+  conv3x3_f32_kernel<CI, BN><<<grid, C::THREADS, C::SMEM, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(out), h, hp, wp, co, out_w);
+  return (int)cudaGetLastError();
+}
+
+template <int CI, int BN>
+int blocks_per_sm_f32() {
+  cudaError_t err = prepare_f32<CI, BN>();
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, conv3x3_f32_kernel<CI, BN>, CfgF<CI, BN>::THREADS,
+        CfgF<CI, BN>::SMEM);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 }  // namespace
 
-// dtype: 0 = bf16 (tensor-core kernel), 1 = fp32 (FMA kernel). Scope:
-// ci in {64, 128}, 1 <= co <= 128. Launches on `stream` without
-// synchronising and returns cudaGetLastError() (cudaErrorInvalidValue
+// dtype: 0 = bf16 (tensor-core kernel), 1 = fp32 (register-tiled FFMA
+// kernel). Scope: ci in {64, 128}, 1 <= co <= 128. Launches on `stream`
+// without synchronising and returns cudaGetLastError() (cudaErrorInvalidValue
 // outside the scope).
 extern "C" int pasta_conv3x3_valid(const void* x, const void* w, void* out,
                                    int dtype, int n, int hp, int wp, int ci,
@@ -330,12 +581,20 @@ extern "C" int pasta_conv3x3_valid(const void* x, const void* w, void* out,
     return co <= 64 ? launch_bf16<128, 64>(x, w, out, n, hp, wp, co, out_w, s)
                     : launch_bf16<128, 128>(x, w, out, n, hp, wp, co, out_w, s);
   }
-  const int h = hp - 2;
-  const long long total = (long long)n * h * out_w * co;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  conv3x3_f32_kernel<<<(unsigned)blocks, threads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(out), h, hp, wp, ci, co, out_w, total);
-  return (int)cudaGetLastError();
+  if (ci == 64)
+    return co <= 64 ? launch_f32<64, 64>(x, w, out, n, hp, wp, co, out_w, s)
+                    : launch_f32<64, 128>(x, w, out, n, hp, wp, co, out_w, s);
+  return co <= 64 ? launch_f32<128, 64>(x, w, out, n, hp, wp, co, out_w, s)
+                  : launch_f32<128, 128>(x, w, out, n, hp, wp, co, out_w, s);
+}
+
+// Resident blocks per SM of the fp32 kernel that serves (ci, co), as the
+// runtime's occupancy calculator sees its registers and shared memory;
+// a negative CUDA error code on failure.
+extern "C" int pasta_conv3x3_f32_blocks_per_sm(int ci, int co) {
+  if ((ci != 64 && ci != 128) || co < 1 || co > 128)
+    return -(int)cudaErrorInvalidValue;
+  if (ci == 64)
+    return co <= 64 ? blocks_per_sm_f32<64, 64>() : blocks_per_sm_f32<64, 128>();
+  return co <= 64 ? blocks_per_sm_f32<128, 64>() : blocks_per_sm_f32<128, 128>();
 }

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pasta_tpu.data.pose import KPT_COLORS, LIMB_SEQ
+from .pose import KPT_COLORS, LIMB_SEQ
 
 RES = 512
 

@@ -17,9 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pasta_tpu.data.geometry import BODY_PARTS, LOWER_PARTS, SLEEVE_PARTS
-
 from .device_cond import dilate_cv
+from .geometry import BODY_PARTS, LOWER_PARTS, SLEEVE_PARTS
 from .host import PASTE_TILE
 
 

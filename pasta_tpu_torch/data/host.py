@@ -11,17 +11,17 @@ in behaviour (tests/test_torch_host.py holds them equal to the originals):
   pose_device_params, _winding_normalized,
   palm_device_params                         <- data/device_cond.py
 
-The jax-free JAX-package modules they use (`data/preprocess.py`,
-`geometry.py`, `pose.py`) are imported, not copied.
+What they use of `pasta_tpu/data/preprocess.py`, `geometry.py` and `pose.py`
+is in the port's own modules of the same names beside this one.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from pasta_tpu.data import preprocess as pp
-from pasta_tpu.data.geometry import BODY_PARTS, LOWER_PARTS
-from pasta_tpu.data.pose import LIMB_SEQ
+from . import preprocess as pp
+from .geometry import BODY_PARTS, LOWER_PARTS, part_quads, perspective_batch
+from .pose import LIMB_SEQ, _rectangle_quad
 
 PASTE_TILE = 256
 CUT_WINDOW = 320
@@ -104,8 +104,6 @@ def palm_device_params(keypoints):
     Returns dict(palm_quads [2, 2, 4, 2] f32, palm_valid [2] bool) with
     side 0 = left (labels 14, keypoints 5/6/7), side 1 = right (15, 2/3/4).
     """
-    from pasta_tpu.data.pose import _rectangle_quad
-
     quads = np.zeros((2, 2, 4, 2), np.float32)
     valid = np.zeros(2, bool)
     for side, idx in enumerate(([5, 6, 7], [2, 3, 4])):
@@ -132,8 +130,6 @@ def host_matrices_for_pair(upper_cut_kps, lower_cut_kps, paste_kps,
     paste transforms. All ~30 per-pair 8x8 systems go through ONE batched
     solve; cut transforms are solved in the device's dst->src direction.
     """
-    from pasta_tpu.data.geometry import part_quads, perspective_batch
-
     n_parts = len(BODY_PARTS)
     qu, vu = part_quads(upper_cut_kps, res, res)
     ql, vl = part_quads(lower_cut_kps, res, res)

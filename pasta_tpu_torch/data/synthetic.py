@@ -4,7 +4,7 @@ No photographs, keypoint files or checkpoints are in the repository, so the
 serving path runs on records drawn here with numpy from a seed: a standing
 OpenPose-18 figure with seeded jitter, a CIHP parsing map painted as filled
 polygons along the limbs, and a 512x512 uint8 image coloured by label. The
-records are `pasta_tpu.data.preprocess.PersonRecord`s shaped as
+records are `data.preprocess.PersonRecord`s shaped as
 `load_person(..., pose_raster="device")` returns them (a 512x320 original
 padded to 512x512, `pose_params` from `data.host.pose_device_params`).
 """
@@ -13,10 +13,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from pasta_tpu.data.pose import _fill_quad
-from pasta_tpu.data.preprocess import PersonRecord
-
 from .host import pose_device_params
+from .pose import _fill_quad
+from .preprocess import PersonRecord
 
 RES = 512
 ORIG_W = 320

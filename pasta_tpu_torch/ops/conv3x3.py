@@ -23,6 +23,19 @@ conflict-free padded rows), with the next tap's weights copied (cp.async)
 while the current tap computes. wgmma, TMA and warp specialisation are
 later work; see csrc/conv3x3.cu for the tiling.
 
+fp32 (the generator and VGG19 in training) takes its own kernel, in full
+fp32 products on the CUDA cores: one-pass TF32 would keep about three
+digits, too few for R1's gradients. There the conv is compute bound by
+~10x (154.6 GFLOP over 0.8 GB at [4,514,514,128]x[3,3,128,64]: 2.31 ms at
+the 67 TFLOP/s fp32 peak), so the design counts FFMAs per load: an 8x8
+accumulator tile a thread, operands read from shared memory as 16-byte
+vectors free of bank conflicts, the 4 + 2 input values of a run of
+positions reused by the three taps of a row from registers (19 FFMAs per
+shared-memory load), C_in staged 8 channels at a time through a cp.async
+ring and transposed on the way in, two blocks an SM. The image is tiled
+as one flat run of positions, so the input gradient's 514-wide rows waste
+0.4% of the work instead of a fifth tile of 128 pixels.
+
 `conv3x3_valid` is one torch.autograd.Function on every device: its
 forward launches K1 on a CUDA tensor and computes `conv3x3_valid_plain` on
 a CPU tensor (it never falls back); its input gradient is again a VALID
@@ -33,7 +46,8 @@ plain differentiable expression (`torch.nn.grad.conv2d_weight`), as the
 JAX package leaves the weight gradient to XLA. A dX whose channels fall
 outside K1's scope (C_out not in {64, 128}) is the plain conv, chosen from
 the shape. `conv3x3_valid.launches` counts forward launches,
-`.launches_bwd` the launches made for input gradients.
+`.launches_bwd` the launches made for input gradients, `.launches_fp32`
+those of either kind that took the fp32 kernel.
 """
 
 from __future__ import annotations
@@ -53,6 +67,9 @@ def _bind(lib):
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    occ = lib.pasta_conv3x3_f32_blocks_per_sm
+    occ.argtypes = [ctypes.c_int, ctypes.c_int]
+    occ.restype = ctypes.c_int
 
 
 def build():
@@ -131,6 +148,8 @@ def _launch(x, w, out_w, bwd):
     if _plain_route(x):
         return conv3x3_valid_plain(x, w, out_w)
     out = _kernel(x, w, out_w)
+    if x.dtype == torch.float32:
+        conv3x3_valid.launches_fp32 += 1
     if bwd:
         conv3x3_valid.launches_bwd += 1
     else:
@@ -192,3 +211,4 @@ def conv3x3_valid(x, w, out_w=None):
 
 conv3x3_valid.launches = 0
 conv3x3_valid.launches_bwd = 0
+conv3x3_valid.launches_fp32 = 0

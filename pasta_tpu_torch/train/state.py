@@ -89,7 +89,9 @@ def batch_to(batch, device):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def init_state(cfg: TrainConfig, seed=0, device="cpu") -> TrainState:
+def init_state(cfg: TrainConfig, seed=0, device="cuda") -> TrainState:
+    """Models, EMA copy and optimizers on `device`: the card unless the
+    caller asks for the CPU, as the parity tests do."""
     g, d, dp = make_models(cfg, seed)
     g, d, dp = g.to(device), d.to(device), dp.to(device)
     g_ema = copy.deepcopy(g).requires_grad_(False)

@@ -24,9 +24,10 @@ def cuda():
 
 
 # (N, H, W', C_in, C_out, out_w): ragged W edges (out_w not a multiple of
-# the 128-pixel tile), odd H (blocks of two output rows), C_out below /
-# equal to / not a multiple of the 64- or 128-channel tile, and alignment
-# columns past out_w + 2.
+# the bf16 kernel's 128-pixel tile), odd H (its blocks of two output rows),
+# C_out below / equal to / not a multiple of the 64- or 128-channel tile
+# (and, for the fp32 kernel's 16-byte stores, not a multiple of 4), and
+# alignment columns past out_w + 2.
 SHAPES = [
     (2, 5, 20, 64, 64, 18),
     (1, 3, 131, 128, 128, 129),
@@ -170,3 +171,66 @@ def test_k1_input_grad_matches_plain(cuda, dtype, shape):
         scale = ref.abs().max().item()
         bound = 2.0 ** -7 * scale if dtype == torch.bfloat16 else 1e-5 * scale
         assert (got.float() - ref).abs().max().item() <= bound
+
+
+# The fp32 kernel (register-tiled FFMA, flat position tiles of 256 or 128)
+# at the training path's four channel pairs, at a size where an image spans
+# several tiles and rows wrap inside a tile.
+FP32_PAIRS = [(128, 64), (64, 64), (64, 128), (128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ci,co", FP32_PAIRS)
+def test_k1_fp32_training_pairs(cuda, ci, co):
+    n, h, wd = 2, 37, 70
+    rng = np.random.RandomState(ci + co)
+    x = torch.from_numpy(rng.randn(n, h + 2, wd + 2, ci).astype(np.float32))
+    w = torch.from_numpy((rng.randn(3, 3, ci, co) / np.sqrt(9 * ci))
+                         .astype(np.float32))
+    dy = torch.from_numpy(rng.randn(n, h, wd, co).astype(np.float32)).to(cuda)
+    xd = x.to(cuda).requires_grad_(True)
+    wk = w.to(cuda)
+    fwd, bwd, f32 = (k1.conv3x3_valid.launches, k1.conv3x3_valid.launches_bwd,
+                     k1.conv3x3_valid.launches_fp32)
+    y = k1.conv3x3_valid(xd, wk)
+    dx, = torch.autograd.grad(y, xd, dy)
+    torch.cuda.synchronize()
+    assert (k1.conv3x3_valid.launches, k1.conv3x3_valid.launches_bwd,
+            k1.conv3x3_valid.launches_fp32) == (fwd + 1, bwd + 1, f32 + 2)
+    xr = xd.detach().clone().requires_grad_(True)
+    yr = k1.conv3x3_valid_plain(xr, wk)
+    dxr, = torch.autograd.grad(yr, xr, dy)
+    # fp32 sums of 9 * C_in (forward) or 9 * C_out (dX) products in another
+    # order than cuDNN's: 1e-5 of the output scale
+    for got, ref in ((y, yr), (dx, dxr)):
+        assert got.shape == ref.shape
+        bound = 1e-5 * ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_k1_fp32_double_backward(cuda):
+    """R1's pattern through the fp32 kernel: the gradient of a function of
+    dX with respect to x and w, against the same through F.conv2d. Every
+    conv in it (forward, dX, and their gradients) runs the kernel."""
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(2, 9, 13, 64).astype(np.float32)).to(cuda)
+    w = torch.from_numpy((rng.randn(3, 3, 64, 64) / 24).astype(np.float32)
+                         ).to(cuda)
+
+    def second_order(conv):
+        xa = x.clone().requires_grad_(True)
+        wa = w.clone().requires_grad_(True)
+        y = conv(xa, wa)
+        gx, = torch.autograd.grad(y.tanh().sum(), xa, create_graph=True)
+        return torch.autograd.grad(gx.square().sum(), (xa, wa))
+
+    before = k1.conv3x3_valid.launches_bwd
+    got = second_order(k1.conv3x3_valid)
+    torch.cuda.synchronize()
+    assert k1.conv3x3_valid.launches_bwd >= before + 2
+    ref = second_order(k1.conv3x3_valid_plain)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        # two chained fp32 convs and their products: 1e-4 of the scale
+        assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item()

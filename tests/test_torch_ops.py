@@ -185,6 +185,33 @@ class TestConv3x3Plain:
             np.testing.assert_allclose(_np(got), _np(ref), rtol=1e-4,
                                        atol=1e-4)
 
+    @pytest.mark.parametrize("ci", [64, 128])
+    def test_fp32_ragged_forward_and_grads_vs_lax(self, ci):
+        """fp32 at a ragged shape (odd H, out_w < W' - 2, C_out = 100 above
+        one 64-channel tile and below the 128 one): forward, dX and dW of
+        the port's Function against jax.vjp of the lax conv, to 1e-5 of
+        each output's scale (fp32 sums of up to 9 * 128 products, and
+        N * H * W for dW, in different orders)."""
+        import jax
+
+        rng = np.random.RandomState(ci)
+        n, h, wp, out_w, co = 2, 7, 23, 17, 100
+        x = rng.randn(n, h + 2, wp, ci).astype(np.float32)
+        wt = (rng.randn(3, 3, ci, co) / np.sqrt(9 * ci)).astype(np.float32)
+        dy = rng.randn(n, h, out_w, co).astype(np.float32)
+        (jx, jw, jdy), (tx, tw, tdy) = _both(x, wt, dy)
+        ref, vjp = jax.vjp(lambda a, b: lax_conv2d(a[:, :, :out_w + 2], b),
+                           jx, jw)
+        ref_dx, ref_dw = vjp(jdy)
+        tx.requires_grad_(True)
+        tw.requires_grad_(True)
+        got = conv3x3.conv3x3_valid(tx, tw, out_w=out_w)
+        got_dx, got_dw = torch.autograd.grad(got, (tx, tw), tdy)
+        for a, b in ((got, ref), (got_dx, ref_dx), (got_dw, ref_dw)):
+            a, b = _np(a), _np(b)
+            assert a.shape == b.shape
+            assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+
     def test_same_matches_padded_lax(self):
         """An in-scope SAME conv takes K1's route (zero pad, then
         conv3x3_valid, here its plain version) in the port's _conv2d."""

@@ -17,6 +17,7 @@ values off by more than 1e-2 of the image's range, and a mean absolute
 difference under 1e-3 of that range.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -28,6 +29,7 @@ import jax
 import jax.numpy as jnp
 
 from pasta_tpu import serving as jserving
+from pasta_tpu.data.preprocess import PersonRecord as JaxPersonRecord
 from pasta_tpu.io.torch_import import import_generator_state, state_dict_to_numpy
 from pasta_tpu.models import Generator as JaxGenerator
 from pasta_tpu_torch import serving
@@ -37,6 +39,13 @@ from pasta_tpu_torch.models import Generator
 NARROW = dict(img_resolution=512, channel_base=2048, channel_max=128,
               conv_clamp=256)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jax_record(rec):
+    """The port's PersonRecord as the JAX package's own class, field by
+    field, for the calls that cross to `pasta_tpu`."""
+    return JaxPersonRecord(**{f.name: getattr(rec, f.name)
+                              for f in dataclasses.fields(rec)})
 
 
 def _items(mode, specs):
@@ -109,9 +118,9 @@ def test_pipeline_scope():
     pipe = serving.TryonPipeline(model, mode="upper")
     got = pipe.prepare(make_person(0, jitter=3.0),
                        make_garment(100, jitter=3.0))
-    ref = jserving.host_prepare(make_person(0, jitter=3.0),
-                                make_garment(100, jitter=3.0), "upper",
-                                cond="device")
+    ref = jserving.host_prepare(
+        _jax_record(make_person(0, jitter=3.0)),
+        _jax_record(make_garment(100, jitter=3.0)), "upper", cond="device")
     assert sorted(got) == sorted(ref)
     assert "parsing" in got and "pose" not in got
 
@@ -121,8 +130,9 @@ def test_port_imports_no_jax():
             "import pasta_tpu_torch.serving, pasta_tpu_torch.models\n"
             "import pasta_tpu_torch.io.from_jax, pasta_tpu_torch.data.synthetic\n"
             "import pasta_tpu_torch.cli.profile_serving\n"
-            "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+            "import pasta_tpu_torch.cli.bench_train\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'flax', 'pasta_tpu'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)

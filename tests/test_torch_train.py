@@ -86,7 +86,7 @@ def setup():
 
 def _port_state(pcfg, jst, vgg_params):
     """The port's TrainState and VGG19 holding the JAX state's weights."""
-    st = pstate.init_state(pcfg, seed=0)
+    st = pstate.init_state(pcfg, seed=0, device="cpu")
     g_sd = jax_to_state_dict(_np_tree({"params": jst.g_params,
                                        "buffers": jst.g_buffers}))
     st.g.load_state_dict(g_sd, strict=True)
