@@ -9,10 +9,11 @@ phases:
   1. device      -- fails without CUDA; prints the card's name, power limit
   2. build       -- compiles csrc/conv3x3.cu (K1) and csrc/shift.cu (K2, K3)
                     from the sources, in parallel; registers and spills
-                    (none allowed in K1's fp32 kernel), its blocks per SM
+                    (none allowed in K1's kernels), the fp32 kernel's blocks
+                    per SM, the bf16 kernel's tile waste at four widths
   3. kernel      -- K1 against its plain version at the serving shapes
-                    (bf16) and, in fp32, at two ragged shapes, with the
-                    error bound and CUDA-event times
+                    (bf16) and, in bf16 and fp32, at two ragged shapes, with
+                    the error bound and CUDA-event times
   4. main        -- run_batch on tiled and full-path batches; K1's launch
                     count must equal its in-scope convs per batch
   5. check       -- a small fp32 serving run on the card against the CPU
@@ -21,9 +22,11 @@ phases:
                     identity, K2 at the TPU probes' shapes (P1-P3), and K1's
                     forward and input gradient against F.conv2d's autograd
                     at the training shapes (fp32 bound: 1e-5 of the output
-                    scale), the kernel alone and with the gradient's pad
-                    copies; every time beside its bound and, for K1, the
-                    one cuDNN call that computes the same
+                    scale); in bf16 the input gradient is one launch on dY
+                    (pad = 2, held against plain on the padded dY, no pad
+                    copy among its ops), in fp32 the kernel alone and with
+                    the gradient's pad copies; every time beside its bound
+                    and, for K1, the one cuDNN call that computes the same
   7. train       -- init_state on the fashion preset at batch 4, a warm-up
                     step, 3 timed regular steps and one R1 step; finite
                     metrics, the ADA controller's move, parameters changed,
@@ -166,7 +169,7 @@ def _print_ptxas(tag, log):
             print(f"[build] {tag} {name}: "
                   f"{line.split(':', 1)[-1].strip()}")
             spill = re.search(r"(\d+) bytes spill stores", line)
-            check(not (spill and "f32" in name and int(spill.group(1))),
+            check(not (spill and "conv3x3_" in name and int(spill.group(1))),
                   f"{name} spills: {line.strip()}")
 
 
@@ -185,6 +188,13 @@ def phase_build(k1, shift):
         check(blocks >= 2, f"K1 fp32 {ci}->{co}: {blocks} blocks per SM")
         print(f"[build] K1 fp32 {ci}->{co}: {blocks} blocks of 256 threads "
               f"per SM (occupancy calculator)", flush=True)
+    waste = []
+    for width in (512, 514, 256, 258):     # square outputs, as on the paths
+        tiles = lib.pasta_conv3x3_bf16_tiles(width, width)
+        check(tiles > 0, f"K1 bf16 tile plan at {width}: {tiles}")
+        waste.append(f"{width}: {100 * (tiles * 64 / width ** 2 - 1):.2f}%")
+    print(f"[build] K1 bf16 tile waste (64-pixel tiles computed over pixels "
+          f"stored, less 1) at out_w {', '.join(waste)}", flush=True)
 
 
 def phase_kernel(k1, batch):
@@ -236,22 +246,24 @@ def phase_kernel(k1, batch):
         rows.append(row(err, t_k1, t_plain, t_bound, by, t_lib,
                         torch.bfloat16))
         del x, xp, xn, got, plain, ref32
-    # the fp32 kernel at ragged shapes: C_out above 64 and not a multiple of
+    # both kernels at ragged shapes: C_out above 64 and not a multiple of
     # 8; C_out not a multiple of 4 with an odd H and out_w < W' - 2
-    for n, hp, wp, ci, co, out_w in ((2, 34, 70, 64, 100, None),
-                                     (1, 11, 23, 128, 7, 15)):
-        x = torch.randn(n, hp, wp, ci, device=dev, generator=g)
-        wt = (torch.randn(3, 3, ci, co, device=dev, generator=g)
-              / (9 * ci) ** 0.5)
-        ref = k1.conv3x3_valid_plain(x, wt, out_w)
-        got = k1.conv3x3_valid(x, wt, out_w)
-        e = (got - ref).abs().max().item()
-        bound = _bound(ref, torch.float32)
-        check(got.shape == ref.shape and e <= bound,
-              f"K1 fp32 [{n},{hp},{wp},{ci}]->{co}: err {e} > {bound}")
-        print(f"[kernel] fp32 [{n},{hp},{wp},{ci}]->{co} out_w "
-              f"{ref.shape[2]} max_abs_err {e:.3g} (bound {bound:.3g}, 1e-5 "
-              f"of the output scale)", flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, hp, wp, ci, co, out_w in ((2, 34, 70, 64, 100, None),
+                                         (1, 11, 23, 128, 7, 15)):
+            x = torch.randn(n, hp, wp, ci, device=dev, generator=g).to(dtype)
+            wt = (torch.randn(3, 3, ci, co, device=dev, generator=g)
+                  / (9 * ci) ** 0.5).to(dtype)
+            ref = k1.conv3x3_valid_plain(x.float(), wt.float(), out_w)
+            got = k1.conv3x3_valid(x, wt, out_w)
+            e = (got.float() - ref).abs().max().item()
+            bound = _bound(ref, dtype)
+            check(got.shape == ref.shape and e <= bound,
+                  f"K1 {dtype} [{n},{hp},{wp},{ci}]->{co}: err {e} > {bound}")
+            print(f"[kernel] {str(dtype)[6:]} [{n},{hp},{wp},{ci}]->{co} "
+                  f"out_w {ref.shape[2]} max_abs_err {e:.3g} (bound "
+                  f"{bound:.3g}, {'2^-7' if dtype == torch.bfloat16 else '1e-5'}"
+                  f" of the output scale)", flush=True)
     torch.cuda.empty_cache()
     return rows
 
@@ -490,20 +502,33 @@ def phase_kernel_train(k1, shift):
             errs.append(err)
         xd, wd = x.detach(), wt.detach()
         xnd, wnd, dyn = xn.detach(), wn.detach(), dy.permute(0, 3, 1, 2)
-        dyp = F.pad(dy, (0, 0, 2, 2, 2, 2))
         wr = wd.flip(0, 1).transpose(2, 3).contiguous()
         it = 5 if dtype == torch.float32 else 10
+        # bf16: the input gradient is the kernel with pad = 2 on dY as it
+        # lies, and no pad copy runs; fp32 pads dY first
+        pads = "aten::constant_pad_nd" in _ops_of(
+            lambda: k1._input_grad(dy, wd, hw + 2))
+        check(pads == (dtype == torch.float32),
+              f"K1 {dtype} input gradient: pad copy {pads}")
+        if dtype == torch.bfloat16:
+            _check_pad2(k1, dy, wr, hw + 2)
         # forward: the wrapper is the kernel alone; plain adds the layout
         # copy around cuDNN's call, the library time is that call alone
         t_f, t_fp = turns(lambda: k1.conv3x3_valid_plain(xd, wd),
                           lambda: k1.conv3x3_valid(xd, wd), it)
         t_fl = cuda_ms(lambda: F.conv2d(xnd, wnd), it)
-        # dX: _input_grad pads dY, launches the kernel on the rotated
-        # weights; plain is the same expression through F.conv2d
+        # dX: _input_grad launches the kernel on the rotated weights, in
+        # fp32 on a padded copy of dY (timed with it, and the kernel alone
+        # beside), in bf16 on dY itself; plain is F.conv2d on the padded dY
         t_x, t_xp = turns(
             lambda: k1.conv3x3_valid_plain(F.pad(dy, (0, 0, 2, 2, 2, 2)), wr),
             lambda: k1._input_grad(dy, wd, hw + 2), it)
-        t_xk = cuda_ms(lambda: k1._kernel(dyp, wr, hw + 2), it)
+        alone = ""
+        if dtype == torch.float32:
+            dyp = F.pad(dy, (0, 0, 2, 2, 2, 2))
+            t_xk = cuda_ms(lambda: k1._kernel(dyp, wr, hw + 2), it)
+            alone = f"; kernel alone {t_xk:.3f}"
+            del dyp
         t_xl = cuda_ms(lambda: torch.nn.grad.conv2d_input(
             xn.shape, wnd, dyn), it)
         bf, by, flop = conv_bound(n, hw, hw, ci, co, dtype, x.numel(),
@@ -518,14 +543,50 @@ def phase_kernel_train(k1, shift):
               f"bound_ms {bf:.3f} {by}) plain {t_fp:.3f} library "
               f"(F.conv2d) {t_fl:.3f} | dX K1 {t_x:.3f} ms "
               f"({flop / t_x / 1e9:.1f} TFLOP/s, {100 * bx / t_x:.1f}% of "
-              f"bound_ms {bx:.3f}; kernel alone {t_xk:.3f}) plain {t_xp:.3f}"
+              f"bound_ms {bx:.3f}{alone}) plain {t_xp:.3f}"
               f" library (conv2d_input) {t_xl:.3f}", flush=True)
         rows["K1"].append(row(errs[0], t_f, t_fp, bf, by, t_fl, dtype))
         rows["K1"].append(row(errs[1], t_x, t_xp, bx, by, t_xl, dtype))
         del x, wt, dy, y, dx, dw, xn, wn, yr, dxr, dwr, xd, wd, xnd, wnd, dyn
-        del dyp, wr
+        del wr
+    # pad = 2 at a ragged shape: out_w past the last column dY reaches, C_out
+    # not a multiple of 8, a width with columns left over by the 64-pixel
+    # tiles
+    dy = torch.randn(2, 37, 131, 128, device=dev, generator=g).to(
+        torch.bfloat16)
+    wr = (torch.randn(3, 3, 128, 100, device=dev, generator=g) / 34).to(
+        torch.bfloat16)
+    _check_pad2(k1, dy, wr, 137)
     torch.cuda.empty_cache()
     return rows
+
+
+def _ops_of(fn):
+    """Names of the ATen ops that fn() runs."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()}
+
+
+def _check_pad2(k1, dy, wr, out_w):
+    """K1 bf16 with its implicit 2-px halo against the plain conv of the
+    padded copy (zero columns on the right up to out_w + 2)."""
+    F = torch.nn.functional
+    got = k1._kernel(dy, wr, out_w, 2)
+    right = out_w - dy.shape[2]
+    ref = k1.conv3x3_valid_plain(
+        F.pad(dy, (0, 0, 2, right, 2, 2)).float(), wr.float())
+    torch.cuda.synchronize()
+    err = (got.float() - ref).abs().max().item()
+    bound = _bound(ref, torch.bfloat16)
+    check(got.shape == ref.shape and err <= bound,
+          f"K1 bf16 pad 2 {tuple(dy.shape)}->{wr.shape[3]}: err {err} > "
+          f"{bound}")
+    print(f"[kernel-train] K1 bf16 pad 2 {list(dy.shape)}->{wr.shape[3]} "
+          f"out_w {out_w} vs plain on the padded copy: max_abs_err "
+          f"{err:.3g} (bound {bound:.3g})", flush=True)
 
 
 def _flat_params(module):

@@ -99,11 +99,28 @@ def kernel_route(monkeypatch):
     """Send CPU tensors down the kernel route, with a CPU stand-in for the
     ctypes launch: like the kernel, it writes a fresh tensor that carries
     no autograd history."""
-    def stub(x, w, out_w):
-        out = k1.conv3x3_valid_plain(x.detach(), w.detach(), out_w)
+    def stub(x, w, out_w, pad=0):
+        stub.calls.append((tuple(x.shape), out_w, pad))
+        stub.inside = True
+        out = k1.conv3x3_valid_plain(x.detach(), w.detach(), out_w, pad)
+        stub.inside = False
         assert out.grad_fn is None and not out.requires_grad
         return out
 
+    class CountingF:
+        """torch.nn.functional, counting the wrapper's own F.pad calls
+        (not those the stand-in's plain conv makes inside the launch)."""
+        def __getattr__(self, name):
+            return getattr(F, name)
+
+        @staticmethod
+        def pad(*args, **kwargs):
+            if not stub.inside:
+                stub.pads.append(tuple(args[1]))
+            return F.pad(*args, **kwargs)
+
+    stub.calls, stub.pads, stub.inside = [], [], False
+    monkeypatch.setattr(k1, "F", CountingF())
     monkeypatch.setattr(k1, "_plain_route", lambda x: False)
     monkeypatch.setattr(k1, "_kernel", stub)
     monkeypatch.setattr(k1.conv3x3_valid, "launches", 0)
@@ -154,3 +171,98 @@ def test_kernel_route_double_backward(kernel_route):
                                atol=1e-5 * gwr.abs().max().item())
     assert k1.conv3x3_valid.launches == 1
     assert k1.conv3x3_valid.launches_bwd >= 2
+
+
+def test_kernel_route_bf16_dx_is_one_launch_on_dy(kernel_route):
+    """A bf16 input gradient reaches the launcher with dY as it lies,
+    pad = 2 and the input's full width W' as out_w: no pad copy before the
+    launch and none after it."""
+    n, h, wp, out_w = 2, 4, 12, 7                     # W' > out_w + 2
+    x, w, dy = _inputs(n, h, wp, 64, 128, out_w, dtype=torch.bfloat16)
+    xg = x.clone().requires_grad_(True)
+    y = k1.conv3x3_valid(xg, w, out_w=out_w)
+    (dx,) = torch.autograd.grad(y, xg, dy)
+    assert kernel_route.calls == [((n, h + 2, wp, 64), out_w, 0),
+                                  ((n, h, out_w, 128), wp, 2)]
+    assert kernel_route.pads == []
+    assert (k1.conv3x3_valid.launches, k1.conv3x3_valid.launches_bwd) == (1, 1)
+    assert dx.shape == x.shape and torch.all(dx[:, :, out_w + 2:] == 0)
+    dxr, _ = _autograd_ref(x.float(), w.float(), dy.float(), out_w)
+    # one bf16 rounding of an fp32 sum on each side's result
+    np.testing.assert_allclose(dx.float().numpy(), dxr.numpy(),
+                               atol=2.0 ** -7 * dxr.abs().max().item())
+
+
+def test_kernel_route_fp32_dx_still_pads(kernel_route):
+    """The fp32 kernel cannot take a halo from the tensor's bounds: dY is
+    padded by 2 before the launch (pad = 0) and dX is padded back to W'."""
+    n, h, wp, out_w = 2, 4, 12, 7
+    x, w, dy = _inputs(n, h, wp, 64, 128, out_w)
+    xg = x.clone().requires_grad_(True)
+    (dx,) = torch.autograd.grad(k1.conv3x3_valid(xg, w, out_w=out_w), xg, dy)
+    assert kernel_route.calls == [((n, h + 2, wp, 64), out_w, 0),
+                                  ((n, h + 4, out_w + 4, 128), out_w + 2, 0)]
+    assert kernel_route.pads == [(0, 0, 2, 2, 2, 2),
+                                 (0, 0, 0, wp - out_w - 2)]
+    dxr, _ = _autograd_ref(x, w, dy, out_w)
+    np.testing.assert_allclose(dx.numpy(), dxr.numpy(),
+                               atol=1e-5 * dxr.abs().max().item())
+
+
+def test_kernel_route_double_backward_bf16(kernel_route):
+    """R1's pattern in bf16 through the kernel route: the input gradient is
+    a launch with pad = 2, its own backward launches with pad 0 and 2
+    again, and no pad copy runs outside the launches."""
+    x, w, _ = _inputs(1, 3, 6, 64, 64, 4, seed=3, dtype=torch.bfloat16)
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    (gx,) = torch.autograd.grad(
+        k1.conv3x3_valid(xg, wg).float().square().sum(), xg,
+        create_graph=True)
+    (gw,) = torch.autograd.grad(gx.float().square().sum(), wg)
+    xr = x.float().permute(0, 3, 1, 2).requires_grad_(True)
+    wr = w.float().permute(3, 2, 0, 1).requires_grad_(True)
+    (gxr,) = torch.autograd.grad(F.conv2d(xr, wr).square().sum(), xr,
+                                 create_graph=True)
+    (gwr,) = torch.autograd.grad(gxr.square().sum(), wr)
+    # three chained bf16 results (y, dX, then the products into dW), each
+    # rounded to 2^-9 relative: 2^-5 of the scale
+    np.testing.assert_allclose(gw.float().numpy(),
+                               gwr.permute(2, 3, 1, 0).numpy(),
+                               atol=2.0 ** -5 * gwr.abs().max().item())
+    pads = [c[2] for c in kernel_route.calls]
+    assert pads[:2] == [0, 2] and set(pads[2:]) == {0, 2}
+    assert kernel_route.pads == []     # dW of the pad-2 conv pads implicitly
+    assert k1.conv3x3_valid.launches == 1
+    assert k1.conv3x3_valid.launches_bwd >= 3
+
+
+@pytest.fixture
+def implicit_halo(monkeypatch):
+    """Every dtype takes the bf16 kernel's route for input gradients (the
+    Function with pad 2, then pad 0, ...), so that fp64 can check it."""
+    monkeypatch.setattr(k1, "_implicit_halo", lambda t: True)
+
+
+@pytest.mark.parametrize("pad", [0, 2])
+@pytest.mark.parametrize("ci,co", [(3, 2), (2, 4)])
+def test_gradcheck_fp64_with_pad(small_scope, implicit_halo, ci, co, pad):
+    x, w, _ = _inputs(2, 3, 7, ci, co, 4, seed=co + pad, dtype=torch.float64)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    assert gradcheck(lambda a, b: k1._Conv3x3.apply(a, b, 4, False, pad),
+                     (x, w))
+
+
+@pytest.mark.parametrize("pad", [0, 2])
+@pytest.mark.parametrize("halo", ["implicit", "copied"])
+def test_gradgradcheck_fp64_with_pad(small_scope, monkeypatch, halo, pad):
+    """The Function is closed under differentiation on both routes: with
+    the halo implicit (pad 0 <-> pad 2) and with dY padded by a copy."""
+    if halo == "implicit":
+        monkeypatch.setattr(k1, "_implicit_halo", lambda t: True)
+    x, w, _ = _inputs(1, 2, 5, 2, 3, 3, seed=pad, dtype=torch.float64)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    out_w = 6 if pad else 3            # pad 2: one column past W + 2 - 2
+    assert gradgradcheck(
+        lambda a, b: k1._Conv3x3.apply(a, b, out_w, False, pad), (x, w))

@@ -24,10 +24,9 @@ def cuda():
 
 
 # (N, H, W', C_in, C_out, out_w): ragged W edges (out_w not a multiple of
-# the bf16 kernel's 128-pixel tile), odd H (its blocks of two output rows),
-# C_out below / equal to / not a multiple of the 64- or 128-channel tile
-# (and, for the fp32 kernel's 16-byte stores, not a multiple of 4), and
-# alignment columns past out_w + 2.
+# the bf16 kernel's 64-pixel tile), odd H, C_out below / equal to / not a
+# multiple of the 64- or 128-channel tile (and, for the kernels' 16-byte
+# stores, not a multiple of 8 or 4), and alignment columns past out_w + 2.
 SHAPES = [
     (2, 5, 20, 64, 64, 18),
     (1, 3, 131, 128, 128, 129),
@@ -234,3 +233,117 @@ def test_k1_fp32_double_backward(cuda):
         assert torch.isfinite(g).all()
         # two chained fp32 convs and their products: 1e-4 of the scale
         assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+
+
+# The bf16 kernel (wgmma on TMA-loaded, swizzled rows) with pad 0 and with
+# its implicit 2-px halo. (N, H_in, W_in, C_in, C_out, extra columns): the
+# output is out_w = W_in + 2 pad - 2 + extra wide (extra < 0 leaves input
+# columns unused, > 0 asks for columns no input reaches: zeros).
+BF16_PAD_SHAPES = [(n, h + 2, wp, ci, co, out_w - (wp - 2))
+                   for n, h, wp, ci, co, out_w in SHAPES] + [
+    (1, 11, 23, 128, 7, -6),         # out_w 15 at pad 0
+    (1, 3, 3, 64, 64, 0),            # the smallest pad-0 input: one output
+    (1, 1, 3, 128, 64, 3),           # one row, a box far wider than W
+    (2, 140, 70, 64, 64, -2),        # out_w 66: two columns left over by the
+                                     # tiles, taken with the axes swapped
+    (1, 200, 10, 128, 100, -5),      # out_w 3: only the swapped part runs
+    (3, 150, 140, 128, 128, 0),      # C_out split over two blocks, 10 left
+    (40, 40, 70, 128, 64, 0),        # more work items than blocks
+    (150, 9, 70, 64, 128, 1),        # the same with three consumer groups
+]
+
+
+def _arange_inputs(n, h, w, ci, co, cuda):
+    """Every input value distinct along a row's pixels and channels (and
+    exactly representable in bf16), so that an operand read through a wrong
+    swizzle or at a wrong pixel offset cannot give the right sums."""
+    i = torch.arange(n * h * w * ci, device=cuda)
+    x = ((i % 509) - 254).float().view(n, h, w, ci) / 64
+    j = torch.arange(9 * ci * co, device=cuda)
+    wt = ((j % 127) - 63).float().view(3, 3, ci, co) / 1024
+    return x.to(torch.bfloat16), wt.to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["randn", "arange"])
+@pytest.mark.parametrize("shape,pad", [
+    (s, p) for s in BF16_PAD_SHAPES for p in (0, 2) if s[1] + 2 * p >= 3])
+def test_k1_bf16_pad_matches_plain(cuda, shape, pad, values):
+    n, h, w, ci, co, extra = shape
+    out_w = max(1, w + 2 * pad - 2 + extra)
+    if values == "arange":
+        xd, wd = _arange_inputs(n, h, w, ci, co, cuda)
+    else:
+        rng = np.random.RandomState(7)
+        xd = torch.from_numpy(rng.randn(n, h, w, ci).astype(np.float32)).to(
+            cuda, torch.bfloat16)
+        wd = torch.from_numpy((rng.randn(3, 3, ci, co) / np.sqrt(9 * ci))
+                              .astype(np.float32)).to(cuda, torch.bfloat16)
+    got = k1._kernel(xd, wd, out_w, pad)
+    torch.cuda.synchronize()
+    ref = k1.conv3x3_valid_plain(xd.float(), wd.float(), out_w, pad)
+    assert got.shape == ref.shape == (n, h + 2 * pad - 2, out_w, co)
+    # one bf16 rounding of an fp32 sum against the fp32 sum
+    bound = 2.0 ** -7 * ref.abs().max().item()
+    assert (got.float() - ref).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_k1_bf16_input_grad_is_one_launch_without_pad(cuda):
+    """dX in bf16 launches K1 once on dY as it lies: no pad op runs."""
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randn(2, 9, 20, 64).astype(np.float32)).to(
+        cuda, torch.bfloat16).requires_grad_(True)
+    w = torch.from_numpy((rng.randn(3, 3, 64, 128) / 24).astype(np.float32)
+                         ).to(cuda, torch.bfloat16)
+    before = k1.conv3x3_valid.launches_bwd
+    for strided in (False, True):
+        y = k1.conv3x3_valid(x, w, out_w=15)
+        # the gradient of a sum reaches the Function expanded (stride 0)
+        loss = y.sum() if strided else (y * torch.ones_like(y)).sum()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            dx, = torch.autograd.grad(loss, x)
+        torch.cuda.synchronize()
+        assert "aten::constant_pad_nd" not in {
+            e.key for e in prof.key_averages()}
+        assert dx.shape == x.shape and torch.all(dx[:, :, 17:] == 0)
+        ref = k1.conv3x3_valid_plain(
+            torch.ones_like(y).float(), w.float().flip(0, 1).transpose(2, 3),
+            20, pad=2)
+        assert ((dx.float() - ref).abs().max().item()
+                <= 2.0 ** -7 * ref.abs().max().item())
+    assert k1.conv3x3_valid.launches_bwd == before + 2
+
+
+@pytest.mark.cuda
+def test_k1_bf16_double_backward(cuda):
+    """R1's pattern through the bf16 kernel: the input gradient (pad 2)
+    with a graph, then the gradient of its square with respect to x and w
+    (launches with pad 0 and 2), against the same through F.conv2d in
+    fp32 on the same bf16 inputs."""
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(2, 9, 13, 64).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(3, 3, 64, 64) / 24).astype(np.float32)
+                         ).to(cuda, torch.bfloat16)
+
+    def second_order(conv, dtype):
+        xa = x.to(dtype).requires_grad_(True)
+        wa = w.to(dtype).requires_grad_(True)
+        y = conv(xa, wa)
+        gx, = torch.autograd.grad(y.float().tanh().sum(), xa,
+                                  create_graph=True)
+        return torch.autograd.grad(gx.float().square().sum(), (xa, wa))
+
+    before = k1.conv3x3_valid.launches_bwd
+    got = second_order(k1.conv3x3_valid, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert k1.conv3x3_valid.launches_bwd >= before + 3
+    ref = second_order(k1.conv3x3_valid_plain, torch.float32)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        # three chained bf16 results, each rounded to 2^-9 relative, and
+        # their products: 2^-5 of the scale
+        assert ((g.float() - r).abs().max().item()
+                <= 2.0 ** -5 * r.abs().max().item())
