@@ -17,9 +17,12 @@ phases:
   4. main        -- run_batch on tiled and full-path batches; K1's launch
                     count must equal its in-scope convs per batch
   5. check       -- a small fp32 serving run on the card against the CPU
-  6. kernel-train -- K2 and K3 against their plain versions at the training
-                    shapes (bf16) and a small fp32 shape, their adjoint
-                    identity, K2 at the TPU probes' shapes (P1-P3), and K1's
+  6. kernel-train -- K2 and K3 (from the positions q) against their plain
+                    versions at the training shapes (bf16) and at ragged
+                    shapes in both dtypes, the (s, f) they derive against
+                    _shift_prep's, their adjoint identity, no op before the
+                    launch, K2's (start, f) entry at the TPU probes' shapes
+                    (P1-P3), and K1's
                     forward and input gradient against F.conv2d's autograd
                     at the training shapes (fp32 bound: 1e-5 of the output
                     scale); in bf16 the input gradient is one launch on dY
@@ -99,18 +102,29 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def cuda_ms(fn, iters):
-    """Mean device time of fn() over `iters` launches (CUDA events)."""
+def cuda_ms(fn, iters, ahead=False):
+    """Mean device time of fn() over `iters` launches (CUDA events). With
+    `ahead`, a few milliseconds of other work are queued first, so that the
+    host has every launch queued before the card reaches the first event: a
+    kernel shorter than its wrapper's host time (about 30 us a call) is
+    then timed, not the wrapper."""
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    if ahead:
+        if cuda_ms.filler is None:
+            cuda_ms.filler = torch.zeros(4096, 4096, device="cuda")
+        torch.mm(cuda_ms.filler, cuda_ms.filler)
     a.record()
     for _ in range(iters):
         fn()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+cuda_ms.filler = None
 
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
@@ -361,25 +375,30 @@ def phase_check():
           f"values beyond 1e-2 of span (budget 2%)", flush=True)
 
 
-def _shift_case(shift, rows, v_dim, out_w, dtype, g, dev, lines=1048,
-                center=1000):
-    """Inputs of K2/K3 shaped as on the training path: per-line positions
+def _shift_case(rows, v_dim, out_w, dtype, g, dev, lines=1048, center=1000):
+    """Inputs of K2/K3 shaped as on the training path: per-line positions q
     with a slope of at most 0.9 across each plane of `lines` lines (as
-    _warp_core_planar makes them), _shift_prep's per-block start and
-    one-hot tap pairs."""
+    _warp_core_planar makes them)."""
     line = torch.arange(rows, device=dev, dtype=torch.float32) % lines
     slope = torch.rand(rows // lines + 1, device=dev, generator=g)[
         torch.arange(rows, device=dev) // lines] * 2 - 1
     q = (center + slope * 0.9 * line
          + torch.rand(rows, device=dev, generator=g))
-    pad = (-rows) % 8
-    base, rem, w = shift._shift_prep(torch.cat([q, q[-1:].expand(pad)]),
-                                     out_w, v_dim)
-    start = shift._row_start(base, rem)[:rows].contiguous()
-    w = w[:rows].contiguous()
     wide = torch.randn(rows, v_dim, device=dev, generator=g).to(dtype)
     dout = torch.randn(rows, out_w, device=dev, generator=g).to(dtype)
-    return start, w, wide, dout
+    return q, wide, dout
+
+
+def _check_row_params(shift, wide, q, out_w, tag):
+    """The (s, f) K2 derives from q are `_shift_prep`'s, bit for bit."""
+    _, s, f = shift._kernel("shift_fwd", wide, q, None, None, wide.shape[1],
+                            out_w, return_rows=True)
+    s_ref, f_ref = shift._row_params_plain(q, out_w, wide.shape[1])
+    torch.cuda.synchronize()
+    check(torch.equal(s, s_ref) and torch.equal(f, f_ref),
+          f"{tag}: the kernel's (s, f) differ from _shift_prep's")
+    blocks = s.view(-1, 8)
+    return (blocks - blocks.amin(1, keepdim=True)).max().item()
 
 
 def _bound(ref, dtype):
@@ -397,53 +416,87 @@ def phase_kernel_train(k1, shift):
     g = torch.Generator(device=dev).manual_seed(1)
     rows = {"K2": [], "K3": [], "K1": []}
     v_dim, out_w = 3200, 1048
-    # R = n * 3 channels * 1048 lines: n = 4 (Dr1), 8 (Gmain), 12 (Dmain)
+    # R = n * 3 channels * 1048 lines: n = 4 (Dr1), 8 (Gmain), 12 (Dmain).
+    # Bytes: the two-tap function reads out_w + 1 columns and q, and writes
+    # out_w (K3: reads out_w and q, writes V). Beside it, for comparison with
+    # measurements of a 40-tap kernel, that kernel's count: out_w + 40
+    # columns read and no q.
     for n in (4, 8, 12):
         r = n * 3 * 1048
-        start, w, wide, dout = _shift_case(shift, r, v_dim, out_w,
-                                           torch.bfloat16, g, dev)
-        for name, kern, plain, a, dim, nbytes in (
-                ("K2", shift.shift_fwd, shift._shift_rows_plain, wide, out_w,
-                 r * (out_w + 40) * 2 + r * out_w * 2),
-                ("K3", shift.shift_bwd, shift._shift_rows_adjoint_plain, dout,
-                 v_dim, r * out_w * 2 + r * v_dim * 2)):
-            got = kern(a, start, w, dim)
-            ref = plain(a, start, w, dim)
+        q, wide, dout = _shift_case(r, v_dim, out_w, torch.bfloat16, g, dev)
+        spread = _check_row_params(shift, wide, q, out_w, f"K2 R={r}")
+        for name, kern, plain, a, dim, nbytes, old_bytes in (
+                ("K2", shift.shift_fwd, shift.shift_fwd_plain, wide, out_w,
+                 r * (2 * out_w + 1) * 2 + 4 * r, r * (2 * out_w + 40) * 2),
+                ("K3", shift.shift_bwd, shift.shift_bwd_plain, dout, v_dim,
+                 r * (out_w + v_dim) * 2 + 4 * r, r * (out_w + v_dim) * 2)):
+            got = kern(a, q, dim)
+            ref = plain(a, q, dim)
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs().max().item()
             bound = _bound(ref, torch.bfloat16)
             check(err <= bound, f"{name} R={r}: err {err} > bound {bound}")
-            t_p1 = cuda_ms(lambda: plain(a, start, w, dim), 5)
-            t_k1 = cuda_ms(lambda: kern(a, start, w, dim), 20)
-            t_k2 = cuda_ms(lambda: kern(a, start, w, dim), 20)
-            t_p2 = cuda_ms(lambda: plain(a, start, w, dim), 5)
+            t_p1 = cuda_ms(lambda: plain(a, q, dim), 5)
+            t_k1 = cuda_ms(lambda: kern(a, q, dim), 20, ahead=True)
+            t_k2 = cuda_ms(lambda: kern(a, q, dim), 20, ahead=True)
+            t_p2 = cuda_ms(lambda: plain(a, q, dim), 5)
             t_k, t_p = (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
             floor = nbytes / HBM_BYTES_PER_S * 1e3
+            # the yardstick of a streaming pass: torch's device-to-device
+            # copy moving as many bytes (half read, half written)
+            half = torch.empty(nbytes // 4, dtype=torch.bfloat16, device=dev)
+            twin = torch.empty_like(half)
+            t_copy = cuda_ms(lambda: twin.copy_(half), 20, ahead=True)
+            del half, twin
             print(f"[kernel-train] {name} R={r} V={v_dim} out_w={out_w} bf16 "
-                  f"max_abs_err {err:.4g} (bound {bound:.4g}) | {t_k:.4f} ms "
-                  f"= {100 * floor / t_k:.1f}% of bound_ms {floor:.4f} "
-                  f"(bytes; {nbytes / t_k / 1e6:.0f} GB/s) | plain "
-                  f"{t_p:.4f} ms | library_ms null", flush=True)
+                  f"from q (largest offset in a block {spread}) max_abs_err "
+                  f"{err:.4g} (bound {bound:.4g}) | {t_k:.4f} ms = "
+                  f"{100 * floor / t_k:.1f}% of bound_ms {floor:.5f} (bytes; "
+                  f"{nbytes / t_k / 1e6:.0f} GB/s; by the 40-tap count "
+                  f"{old_bytes / HBM_BYTES_PER_S * 1e3:.5f}) | a copy of as "
+                  f"many bytes {t_copy:.4f} ms | plain {t_p:.4f} ms | "
+                  f"library_ms null", flush=True)
             rows[name].append(row(err, t_k, t_p, floor, "bytes"))
-        del start, w, wide, dout
-    # fp32 at a small ragged shape, and the adjoint identity
-    start, w, wide, dout = _shift_case(shift, 1003, 640, 131, torch.float32,
-                                       g, dev, lines=200, center=200)
-    e2 = (shift.shift_fwd(wide, start, w, 131)
-          - shift._shift_rows_plain(wide, start, w, 131)).abs().max().item()
-    e3 = (shift.shift_bwd(dout, start, w, 640)
-          - shift._shift_rows_adjoint_plain(dout, start, w, 640)).abs().max(
-              ).item()
-    check(e2 <= 1e-5 and e3 <= 1e-5, f"K2/K3 fp32: {e2}, {e3}")
-    lhs = (shift.shift_fwd(wide, start, w, 131).double()
-           * dout.double()).sum().item()
-    rhs = (wide.double() * shift.shift_bwd(dout, start, w, 640).double()
-           ).sum().item()
-    check(abs(lhs - rhs) <= 1e-5 * abs(lhs), f"adjoint {lhs} vs {rhs}")
-    print(f"[kernel-train] fp32 R=1003 V=640 out_w=131: K2 err {e2:.3g} K3 "
-          f"err {e3:.3g} (bound 1e-5) | <K2 x, y> {lhs:.10g} vs <x, K3 y> "
-          f"{rhs:.10g}", flush=True)
-    # the TPU probes of K2: two taps, a start per row, fp32
+        del q, wide, dout
+    # no op runs before the launch: the path hands K2 the positions as they are
+    q, wide, _ = _shift_case(8 * 1048, v_dim, out_w, torch.bfloat16, g, dev)
+    ops = _ops_of(lambda: shift._row_shift(wide, q, out_w))
+    prep_ops = ops & {"aten::one_hot", "aten::repeat_interleave", "aten::floor",
+                      "aten::clamp", "aten::amin", "aten::gather", "aten::mul"}
+    check(not prep_ops, f"_row_shift ran {sorted(prep_ops)} before K2")
+    print(f"[kernel-train] _row_shift on the card runs {sorted(ops)}",
+          flush=True)
+    del q, wide
+    # ragged shapes from q, positions past both clamps and offsets past 38:
+    # widths that are not whole 16-byte chunks (the scalar kernel) and that
+    # are, in both dtypes; the adjoint identity in fp32
+    for dtype, ow in ((torch.float32, 131), (torch.bfloat16, 131),
+                      (torch.float32, 132), (torch.bfloat16, 136)):
+        q, wide, dout = _shift_case(1000, 640, ow, dtype, g, dev, lines=200,
+                                    center=200)
+        q[::5] = 640.0
+        q[1::7] = -3.0
+        q[2::3] += torch.rand(len(q[2::3]), device=dev, generator=g) * 60
+        spread = _check_row_params(shift, wide, q, ow, f"K2 out_w={ow}")
+        check(spread == 38, f"largest offset {spread}, wanted the clamp 38")
+        k2, k3 = shift.shift_fwd(wide, q, ow), shift.shift_bwd(dout, q, 640)
+        r2, r3 = shift.shift_fwd_plain(wide, q, ow), shift.shift_bwd_plain(
+            dout, q, 640)
+        e2 = (k2.float() - r2.float()).abs().max().item()
+        e3 = (k3.float() - r3.float()).abs().max().item()
+        check(e2 <= _bound(r2, dtype) and e3 <= _bound(r3, dtype),
+              f"K2/K3 {dtype} out_w={ow}: {e2}, {e3}")
+        tail = ""
+        if dtype == torch.float32:
+            lhs = (k2.double() * dout.double()).sum().item()
+            rhs = (wide.double() * k3.double()).sum().item()
+            check(abs(lhs - rhs) <= 1e-5 * abs(lhs), f"adjoint {lhs} vs {rhs}")
+            tail = f" | <K2 x, y> {lhs:.10g} vs <x, K3 y> {rhs:.10g}"
+        print(f"[kernel-train] {str(dtype)[6:]} R=1000 V=640 out_w={ow} from "
+              f"q: K2 err {e2:.3g} K3 err {e3:.3g} (bound "
+              f"{_bound(r2, dtype):.3g}), (s, f) equal _shift_prep's, largest"
+              f" offset {spread}{tail}", flush=True)
+    # the TPU probes of K2 through the (start, f) entry: a start per row, fp32
     for probe, r, k_hi in (("P1", 4 * 1048, 4224 - 3144 - 1),
                            ("P2", 32, 4224 - 3144 - 257),
                            ("P3", 32, 4224 - 3144 - 257)):
@@ -451,20 +504,22 @@ def phase_kernel_train(k1, shift):
         k = torch.randint(0, k_hi, (r,), device=dev, generator=g,
                           dtype=torch.int32)
         f = torch.rand(r, device=dev, generator=g)
-        wt = torch.stack([1 - f, f], dim=1).contiguous()
+        wt = shift._two_taps(f)
         idx = k.long()[:, None] + torch.arange(3144, device=dev)[None]
         want = (torch.gather(src, 1, idx) * (1 - f)[:, None]
                 + torch.gather(src, 1, idx + 1) * f[:, None])
-        got = shift.shift_fwd(src, k, wt, 3144)
+        got = shift.shift_fwd_rows(src, k, f, 3144)
         err = (got - want).abs().max().item()
         check(err <= 1e-5, f"{probe}: err {err}")
-        t_k = cuda_ms(lambda: shift.shift_fwd(src, k, wt, 3144), 20)
+        t_k = cuda_ms(lambda: shift.shift_fwd_rows(src, k, f, 3144), 20,
+                      ahead=True)
         t_p = cuda_ms(lambda: shift._shift_rows_plain(src, k, wt, 3144), 5)
-        nbytes = r * (3144 + 2) * 4 + r * 3144 * 4
+        nbytes = r * (3144 + 1) * 4 + r * 3144 * 4 + 8 * r
         floor = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"[kernel-train] {probe} R={r} L=4224 W=3144 fp32 max_abs_err "
-              f"{err:.3g} | K2 {t_k:.4f} ms ({nbytes / t_k / 1e6:.0f} GB/s) "
-              f"| bound_ms {floor:.5f} (bytes) | plain {t_p:.4f} ms | "
+        print(f"[kernel-train] {probe} R={r} L=4224 W=3144 fp32 (start, f) "
+              f"entry max_abs_err {err:.3g} | K2 {t_k:.4f} ms = "
+              f"{100 * floor / t_k:.1f}% of bound_ms {floor:.5f} (bytes; "
+              f"{nbytes / t_k / 1e6:.0f} GB/s) | plain {t_p:.4f} ms | "
               f"library_ms null", flush=True)
         rows["K2"].append(row(err, t_k, t_p, floor, "bytes"))
     # K1 forward and input gradient at the training shapes, against
@@ -557,6 +612,7 @@ def phase_kernel_train(k1, shift):
     wr = (torch.randn(3, 3, 128, 100, device=dev, generator=g) / 34).to(
         torch.bfloat16)
     _check_pad2(k1, dy, wr, 137)
+    cuda_ms.filler = None
     torch.cuda.empty_cache()
     return rows
 

@@ -7,8 +7,10 @@ warm-up step, then `--steps` regular steps and one lazy-R1 step
 (do_r1_d and do_r1_dp), each timed with CUDA events and the host clock
 (every step ends in a device sync: the ADA controller reads D's real
 signs). Prints s/step, sec/kimg, the peak device memory and the kernels'
-launch counts; `--profile` adds a torch.profiler breakdown of one regular
-step (device idle share, kernel time by name). TF32 is off.
+launch counts, ADA's geometric stage (two-pass against the gather oracle)
+and that stage's parts, each timed alone; `--profile` adds a torch.profiler
+breakdown of one regular step (device idle share, kernel time by name).
+TF32 is off.
 
 Run from the repository root:
     python3 -m pasta_tpu_torch.cli.bench_train [--batch 4] [--steps 3]
@@ -149,6 +151,159 @@ def geom_stage(n, res, device="cuda", seed=0, iters=5):
             10 * np.log10(4.0 / max(mse, 1e-30)))
 
 
+def geom_breakdown(n, res, device="cuda", seed=0, iters=5):
+    """Where the two-pass geometric stage's time goes: CUDA-event times of
+    its parts, each replayed alone on the tensors one real forward hands it
+    (captured by wrapping `_resample_matrix` and `_row_shift` for that one
+    call; the stage's code is not changed). Forward + backward where a
+    gradient flows through the part, forward alone where none does (the
+    resample matrices, the row positions). Returns (whole stage ms by
+    events, whole stage ms by the host clock, [(part, ms)], (device
+    kernels of one profiled forward + backward, their busy ms, their span
+    ms))."""
+    from pasta_tpu_torch.ops import affine_warp as aw
+    from pasta_tpu_torch.ops import setup_filter
+    from pasta_tpu_torch.train.augment import WAVELETS
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(n, res, res, 3, device=dev, generator=g) * 2 - 1
+    taps = setup_filter(WAVELETS["sym6"]).numpy()
+    m = len(WAVELETS["sym6"]) // 4 * 2
+    c = ((res + 2 * m) * 2 - 1) / 2
+    th = np.pi / 6
+    mat = (np.array([[1, 0, c], [0, 1, c], [0, 0, 1]])
+           @ np.array([[np.cos(th), -np.sin(th), 0],
+                       [np.sin(th), np.cos(th), 0], [0, 0, 1]])
+           @ np.array([[1, 0, -c], [0, 1, -c], [0, 0, 1]]))
+    mat = torch.tensor(mat, dtype=torch.float32, device=dev).expand(n, 3, 3)
+    bf16 = torch.bfloat16
+
+    def stage(a):
+        return aw.geom_resample_twopass(a.to(bf16), mat, taps, m).float()
+
+    # one forward with the two inner functions wrapped to keep their inputs
+    matrices, shifts = [], []
+    resample_matrix, row_shift = aw._resample_matrix, aw._row_shift
+
+    def keep_matrix(*args):
+        matrices.append(args)
+        return resample_matrix(*args)
+
+    def keep_shift(wide, q, out_w):
+        shifts.append((wide.detach(), q.detach(), out_w))
+        return row_shift(wide, q, out_w)
+
+    aw._resample_matrix, aw._row_shift = keep_matrix, keep_shift
+    try:
+        with torch.no_grad():
+            stage(x)
+    finally:
+        aw._resample_matrix, aw._row_shift = resample_matrix, row_shift
+    npad = res + 2 * m
+    side = 2 * npad
+    v_dim = shifts[0][0].shape[1]
+    u = torch.from_numpy(aw._upsample_matrix(taps, npad)).to(dev, bf16)
+    d = torch.from_numpy(aw._downsample_matrix(
+        taps, side, extra_pad=-2 * m)).to(dev, bf16)
+    b1, b2 = (resample_matrix(*args) for args in matrices)
+    plane = torch.randn(n, 3, side, side, device=dev, generator=g).to(bf16)
+    swap = torch.arange(n, device=dev) % 2 == 0
+    pad = torch.nn.functional.pad
+
+    def fwd_bwd(fn, a):
+        def run():
+            leaf = a.clone().requires_grad_(True)
+            out = fn(leaf)
+            torch.autograd.grad(out, leaf, torch.ones_like(out))
+        return run
+
+    def prep_plain():
+        for wide, q, out_w in shifts:
+            base, rem, _ = aw._shift_prep(q, out_w, v_dim)
+            aw._row_start(base, rem)
+
+    def k2():
+        for wide, q, out_w in shifts:
+            aw.shift_fwd(wide, q, out_w)
+
+    k3_douts = [(w[:, :ow].contiguous(), q) for w, q, ow in shifts]
+
+    def k3():
+        for dout, q in k3_douts:
+            aw.shift_bwd(dout, q, v_dim)
+
+    parts = [
+        ("cast to bf16 and back (fwd + bwd)",
+         fwd_bwd(lambda a: a.to(bf16).float(), x)),
+        ("reflect pad + 2 FIR upsample matmuls (fwd + bwd)",
+         fwd_bwd(lambda a: torch.matmul(u, torch.matmul(
+             pad(a.permute(0, 3, 1, 2), (m, m, m, m), mode="reflect"),
+             u.t())), x.to(bf16))),
+        ("quarter turn: transpose, flip, torch.where (fwd + bwd)",
+         fwd_bwd(lambda a: torch.where(swap[:, None, None, None],
+                                       a.transpose(2, 3).flip(2), a), plane)),
+        ("_resample_matrix x2 (fwd; no gradient flows)",
+         lambda: [resample_matrix(*args) for args in matrices]),
+        ("resample matmul, pass 1 (fwd + bwd)",
+         fwd_bwd(lambda a: torch.matmul(a, b1[:, None]), plane)),
+        ("resample matmul, pass 2, on the transposed view (fwd + bwd)",
+         fwd_bwd(lambda a: torch.matmul(a.transpose(2, 3), b2[:, None]),
+                 plane)),
+        ("  the same on a contiguous input (the difference is the "
+         "transpose's copy)",
+         fwd_bwd(lambda a: torch.matmul(a, b2[:, None]), plane)),
+        ("the plain route's 40-tap prep, x2: _shift_prep + _row_start "
+         "(fwd; not run on the card, K2 and K3 take q)", prep_plain),
+        ("K2 x2 (fwd)", k2),
+        ("K3 x2 (bwd)", k3),
+        ("transpose + 2 FIR downsample matmuls + crop (fwd + bwd)",
+         fwd_bwd(lambda a: torch.matmul(d, torch.matmul(
+             a.transpose(2, 3), d.t())).permute(0, 2, 3, 1), plane)),
+    ]
+    times = [(name, _event_ms(fn, iters)) for name, fn in parts]
+    whole = fwd_bwd(stage, x)
+    t_events = _event_ms(whole, iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        whole()
+    torch.cuda.synchronize()
+    t_host = (time.perf_counter() - t0) * 1e3 / iters
+    # what the stage does on the host at every call: its two FIR matrices,
+    # filled in a Python loop and uploaded
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        torch.from_numpy(aw._upsample_matrix(taps, npad)).to(dev, bf16)
+        torch.from_numpy(aw._downsample_matrix(
+            taps, side, extra_pad=-2 * m)).to(dev, bf16)
+    torch.cuda.synchronize()
+    times.append(("host clock: the two FIR matrices built in numpy and "
+                  "uploaded, as every call of the stage does",
+                  (time.perf_counter() - t0) * 1e3 / iters))
+    return t_events, t_host, times, _device_share(whole)
+
+
+def _device_share(fn):
+    """(device kernels, their busy ms, the span ms from the first to the
+    last of them) of one fn() under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pasta_tpu_torch.cli.profile_serving import busy_us
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.time_range.elapsed_us() > 0]
+    if not spans:
+        raise RuntimeError("bench_train: the trace holds no device time")
+    return (len(spans), busy_us(spans) / 1e3,
+            (max(e for _, e in spans) - min(s for s, _ in spans)) / 1e3)
+
+
 def profile_step(step, state, batch, generator, do_r1=False):
     """torch.profiler over one step: idle share, kernel time by name, and
     the host ops that launched the most device time."""
@@ -244,6 +399,25 @@ def main(argv=None):
           f"{cfg.resolution}^2: two-pass (bf16, K2/K3) {t_two:.3f} ms | "
           f"gather oracle (fp32) {t_gather:.3f} ms | two-pass vs gather "
           f"PSNR {psnr:.2f} dB", flush=True)
+    t_events, t_host, parts, (n_kernels, busy, span) = geom_breakdown(
+        n_d, cfg.resolution)
+    print(f"[augment] two-pass stage alone, forward + backward: "
+          f"{t_events:.3f} ms by CUDA events, {t_host:.3f} ms by the host "
+          f"clock; profiled once: {n_kernels} device kernels, busy "
+          f"{busy:.3f} ms over a span of {span:.3f} ms, idle share "
+          f"{1 - busy / span:.3f}; its parts, each replayed alone:",
+          flush=True)
+    for name, ms in parts:
+        print(f"[augment] {ms:9.3f} ms  {name}", flush=True)
+    counted = sum(ms for name, ms in parts
+                  if not name.startswith(("  the same", "the plain route",
+                                          "host clock")))
+    print(f"[augment] {counted:9.3f} ms  sum of the parts (without the plain "
+          f"route's prep, the contiguous twin and the host's share) | "
+          f"{t_events - counted:.3f} ms not attributed: the card waiting "
+          f"for the host (the FIR matrices, the launches), the per-sample "
+          f"scalar ops, autograd's bookkeeping",
+          flush=True)
     if args.profile:
         profile_step(step, state, batch, gen)
         if not args.skip_r1:

@@ -7,19 +7,34 @@ reflection. The two-pass form (Catmull & Smith) folds a quarter turn into
 the source so the residual line slope is at most 1, then resamples rows and
 columns in turn; each pass is a shared-rate 1-D resample (a banded matrix
 built from iota, mirror boundary folded in, applied as one batched matmul)
-followed by a per-line fractional shift:
+followed by a per-line fractional shift by the real-valued position q[r]:
 
-  K2  out[r, x] = sum_t w[r, t] * wide[r, start[r] + t + x]   (shift_fwd)
-  K3  its exact adjoint, a gather with no scatters            (shift_bwd)
+  K2  out[r, x]   = (1 - f) wide[r, s + x] + f wide[r, s + x + 1]  (shift_fwd)
+  K3  dwide[r, c] = (1 - f) dout[r, c - s] + f dout[r, c - s - 1]  (shift_bwd)
 
-csrc/shift.cu holds both (CUDA C++ for sm_90a, built with nvcc at first
-use, bound with ctypes). `_ShiftApply` and `_ShiftAdjoint` are a pair of
-autograd Functions whose backwards call each other, as the JAX package's
-custom_vjp pair does, so R1's grad-of-grad through the augmented real
-image runs K2 and K3 again. On a CPU tensor the wrappers compute the plain
-versions (`_shift_rows_plain`, `_shift_rows_adjoint_plain`); on a CUDA
-tensor they launch the kernel or raise. `shift_fwd.launches` and
-`shift_bwd.launches` count kernel launches.
+with q clamped to [0, V - out_w - 42], k = floor(q), f = q - k and s = kmin
++ clamp(k - kmin, 0, 38), kmin the least k of the row's block of 8 rows
+(the JAX package's blocking, which is part of its result). csrc/shift.cu
+holds both kernels (CUDA C++ for sm_90a, built with nvcc at first use,
+bound with ctypes); they take q and derive (s, f) themselves, so on a CUDA
+tensor no op runs before the launch. `shift_fwd_rows` / `shift_bwd_rows`
+launch the same kernels with (start, f) given per row, as the TPU design
+probes of K2 have them.
+
+The plain versions keep the JAX reference's form term for term: `_shift_prep`
+turns q into a per-block start and a one-hot pair over 40 static taps, and
+`_shift_rows_plain` / `_shift_rows_adjoint_plain` sum the 40 taps;
+`shift_fwd_plain` and `shift_bwd_plain` are the two chained, the plain
+versions of K2 and K3. One difference: for a non-finite `wide` the 40-tap
+sum spreads 0 * inf = nan over 40 columns and the two-tap kernels do not;
+the kernels are held to plain on finite inputs only.
+
+`_ShiftApply` and `_ShiftAdjoint` are a pair of autograd Functions whose
+backwards call each other, as the JAX package's custom_vjp pair does, so
+R1's grad-of-grad through the augmented real image runs K2 and K3 again;
+they save q ([R] fp32) and nothing else. On a CPU tensor the wrappers
+compute the plain versions; on a CUDA tensor they launch the kernel or
+raise. `shift_fwd.launches` and `shift_bwd.launches` count kernel launches.
 
 The JAX package's `_spmd_wrap` (shard_map of the Pallas calls) is TPU
 partitioning and is not ported. `bilinear_warp_gather` is the test oracle.
@@ -38,7 +53,6 @@ from ._build import load_library
 _TAPS = 40          # per-line tap window: covers |d shift/d line| * 8 + 2
 _ROWS_PER_BLOCK = 8
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-_KERNEL_TAPS = (40, 2)   # K2/K3, and the probes' two-tap shift
 
 
 def _mirror_coord(c, n):
@@ -148,9 +162,42 @@ def _shift_bwd_plain(base, rem, w, dout, v_dim):
     return _shift_rows_adjoint_plain(dout, _row_start(base, rem), w, v_dim)
 
 
+def _prep_rows(q, out_w, v_dim):
+    """`_shift_prep` as the row kernels' plain versions take it: (start [R]
+    int32, w [R, 40])."""
+    base, rem, w = _shift_prep(q, out_w, v_dim)
+    return _row_start(base, rem), w
+
+
+def _row_params_plain(q, out_w, v_dim):
+    """The (s [R] int32, f [R] fp32) that K2 and K3 derive from q, read off
+    `_shift_prep`'s result: s is the block's start plus the row's first
+    non-zero tap (weight 1 - f > 0), f the weight of the tap after it."""
+    start, w = _prep_rows(q, out_w, v_dim)
+    t = (w != 0).int().argmax(dim=1)
+    f = w.gather(1, (t + 1)[:, None])[:, 0]
+    return start + t.to(torch.int32), f
+
+
+def _two_taps(f):
+    return torch.stack([1 - f, f], dim=1)
+
+
+def shift_fwd_plain(wide, q, out_w):
+    """Plain version of K2 from q: `_shift_prep`, then the 40-tap sum."""
+    return _shift_rows_plain(wide, *_prep_rows(q, out_w, wide.shape[1]),
+                             out_w)
+
+
+def shift_bwd_plain(dout, q, v_dim):
+    """Plain version of K3 from q: `_shift_prep`, then the 40-tap adjoint."""
+    return _shift_rows_adjoint_plain(
+        dout, *_prep_rows(q, dout.shape[1], v_dim), v_dim)
+
+
 def _bind(lib):
     for fn in (lib.pasta_shift_fwd, lib.pasta_shift_bwd):
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
 
@@ -161,21 +208,30 @@ def build():
     return load_library("shift.cu", _bind)
 
 
-def _check(name, a, start, w, rows_len):
+def _check(name, a, q, start, f, v_dim, out_w):
+    """`a` [R, .] on a CUDA device in bf16/fp32, with either q [R] fp32 (R a
+    multiple of 8, a non-empty clamp range) or start [R] int32 and f [R]
+    fp32."""
     if a.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {a.device}")
     if a.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: dtype {a.dtype} not bf16/fp32")
+    if a.ndim != 2 or a.shape[0] < 1 or v_dim < 1 or out_w < 1:
+        raise ValueError(f"{name}: shape {tuple(a.shape)}, V {v_dim}, out_w "
+                         f"{out_w}")
     r = a.shape[0]
-    if (a.ndim != 2 or start.shape != (r,) or start.dtype != torch.int32
-            or w.ndim != 2 or w.shape[0] != r or w.dtype != torch.float32
-            or w.shape[1] not in _KERNEL_TAPS):
-        raise ValueError(f"{name}: shapes {tuple(a.shape)} start "
-                         f"{tuple(start.shape)} {start.dtype} w "
-                         f"{tuple(w.shape)} {w.dtype}")
-    if r < 1 or rows_len < 1:
-        raise ValueError(f"{name}: empty shape")
-    for t in (a, start, w):
+    if q is not None:
+        rows = [(q, torch.float32)]
+        if r % _ROWS_PER_BLOCK or v_dim < out_w + _TAPS + 2:
+            raise ValueError(f"{name}: from q, R = {r} must be a multiple of "
+                             f"8 and V = {v_dim} >= out_w + 42 = {out_w + 42}")
+    else:
+        rows = [(start, torch.int32), (f, torch.float32)]
+    for t, dtype in rows:
+        if t.shape != (r,) or t.dtype != dtype:
+            raise ValueError(f"{name}: per-row input {tuple(t.shape)} "
+                             f"{t.dtype}, wanted ({r},) {dtype}")
+    for t in [a] + [t for t, _ in rows]:
         if t.device != a.device or not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous, one device")
 
@@ -185,55 +241,69 @@ def _plain_route(x):
     return x.device.type == "cpu"
 
 
-def _launch(fn, a, start, w, out, v_dim, out_w):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _kernel(name, a, q, start, f, v_dim, out_w, return_rows=False):
+    """One launch of K2 (name "shift_fwd": a = wide [R, v_dim]) or K3
+    ("shift_bwd": a = dout [R, out_w]) into a fresh tensor with no autograd
+    history. With `return_rows` also the (s, f) the kernel used."""
+    _check(name, a, q, start, f, v_dim, out_w)
+    lib, _, _ = build()
+    r = a.shape[0]
+    out = torch.empty((r, out_w if name == "shift_fwd" else v_dim),
+                      dtype=a.dtype, device=a.device)
+    s_out = f_out = None
+    if return_rows:
+        s_out = torch.empty(r, dtype=torch.int32, device=a.device)
+        f_out = torch.empty(r, dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), start.data_ptr(), w.data_ptr(),
-                 out.data_ptr(), _DTYPE_CODE[a.dtype], a.shape[0], v_dim,
-                 out_w, w.shape[1], stream)
+        err = getattr(lib, "pasta_" + name)(
+            a.data_ptr(), _ptr(q), _ptr(start), _ptr(f), out.data_ptr(),
+            _ptr(s_out), _ptr(f_out), _DTYPE_CODE[a.dtype], r, v_dim, out_w,
+            torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"shift kernel launch failed, CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed, CUDA error {err}")
+    return (out, s_out, f_out) if return_rows else out
 
 
-def _kernel_fwd(wide, start, w, out_w):
-    """One launch of K2 into a fresh tensor (no autograd history)."""
-    _check("shift_fwd", wide, start, w, out_w)
-    lib, _, _ = build()
-    out = torch.empty((wide.shape[0], out_w), dtype=wide.dtype,
-                      device=wide.device)
-    _launch(lib.pasta_shift_fwd, wide, start, w, out, wide.shape[1], out_w)
-    return out
-
-
-def _kernel_bwd(dout, start, w, v_dim):
-    """One launch of K3 into a fresh tensor (no autograd history)."""
-    _check("shift_bwd", dout, start, w, v_dim)
-    lib, _, _ = build()
-    dwide = torch.empty((dout.shape[0], v_dim), dtype=dout.dtype,
-                        device=dout.device)
-    _launch(lib.pasta_shift_bwd, dout, start, w, dwide, v_dim,
-            dout.shape[1])
-    return dwide
-
-
-def shift_fwd(wide, start, w, out_w):
-    """K2: out[r, x] = sum_t w[r, t] * wide[r, start[r] + t + x], wide
-    [R, V] (bf16/fp32), start [R] int32 in [0, V), w [R, taps] fp32 with
-    taps in {40, 2}. The kernel on CUDA tensors, the plain version on CPU
-    tensors."""
+def shift_fwd(wide, q, out_w):
+    """K2 from the rows' positions: wide [R, V] (bf16/fp32, R a multiple of
+    8), q [R] fp32 -> [R, out_w]. The kernel on CUDA tensors, the plain
+    version on CPU tensors."""
     if _plain_route(wide):
-        return _shift_rows_plain(wide, start, w, out_w)
-    out = _kernel_fwd(wide, start, w, out_w)
+        return shift_fwd_plain(wide, q, out_w)
+    out = _kernel("shift_fwd", wide, q, None, None, wide.shape[1], out_w)
     shift_fwd.launches += 1
     return out
 
 
-def shift_bwd(dout, start, w, v_dim):
-    """K3, the adjoint of K2: [R, out_w] -> [R, v_dim]. The kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+def shift_bwd(dout, q, v_dim):
+    """K3, the adjoint of K2: dout [R, out_w], q [R] fp32 -> [R, v_dim]. The
+    kernel on CUDA tensors, the plain version on CPU tensors."""
     if _plain_route(dout):
-        return _shift_rows_adjoint_plain(dout, start, w, v_dim)
-    dwide = _kernel_bwd(dout, start, w, v_dim)
+        return shift_bwd_plain(dout, q, v_dim)
+    dwide = _kernel("shift_bwd", dout, q, None, None, v_dim, dout.shape[1])
+    shift_bwd.launches += 1
+    return dwide
+
+
+def shift_fwd_rows(wide, start, f, out_w):
+    """K2 with the rows' (s, f) given: start [R] int32 in [0, V), f [R] fp32,
+    any R (the design probes' form). Counts as a launch of K2."""
+    if _plain_route(wide):
+        return _shift_rows_plain(wide, start, _two_taps(f), out_w)
+    out = _kernel("shift_fwd", wide, None, start, f, wide.shape[1], out_w)
+    shift_fwd.launches += 1
+    return out
+
+
+def shift_bwd_rows(dout, start, f, v_dim):
+    """K3 with the rows' (s, f) given. Counts as a launch of K3."""
+    if _plain_route(dout):
+        return _shift_rows_adjoint_plain(dout, start, _two_taps(f), v_dim)
+    dwide = _kernel("shift_bwd", dout, None, start, f, v_dim, dout.shape[1])
     shift_bwd.launches += 1
     return dwide
 
@@ -245,34 +315,32 @@ shift_bwd.launches = 0
 # The shift and its adjoint are a mutually-defined linear pair: each
 # Function's backward applies the other, so any tower of gradients (R1
 # differentiates D(augment(x)) w.r.t. x and then w.r.t. D's parameters)
-# stays on K2/K3. Neither differentiates start or w (q is stop-gradiented).
+# stays on K2/K3. Neither differentiates q (it is stop-gradiented).
 
 class _ShiftApply(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, wide, start, w, out_w):
-        ctx.save_for_backward(start, w)
+    def forward(ctx, wide, q, out_w):
+        ctx.save_for_backward(q)
         ctx.v_dim = wide.shape[1]
-        return shift_fwd(wide, start, w, out_w)
+        return shift_fwd(wide, q, out_w)
 
     @staticmethod
     def backward(ctx, dout):
-        start, w = ctx.saved_tensors
-        return (_ShiftAdjoint.apply(dout.contiguous(), start, w, ctx.v_dim),
-                None, None, None)
+        (q,) = ctx.saved_tensors
+        return _ShiftAdjoint.apply(dout.contiguous(), q, ctx.v_dim), None, None
 
 
 class _ShiftAdjoint(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, dout, start, w, v_dim):
-        ctx.save_for_backward(start, w)
+    def forward(ctx, dout, q, v_dim):
+        ctx.save_for_backward(q)
         ctx.out_w = dout.shape[1]
-        return shift_bwd(dout, start, w, v_dim)
+        return shift_bwd(dout, q, v_dim)
 
     @staticmethod
     def backward(ctx, c):
-        start, w = ctx.saved_tensors
-        return (_ShiftApply.apply(c.contiguous(), start, w, ctx.out_w),
-                None, None, None)
+        (q,) = ctx.saved_tensors
+        return _ShiftApply.apply(c.contiguous(), q, ctx.out_w), None, None
 
 
 def _row_shift(wide, q, out_w):
@@ -280,9 +348,8 @@ def _row_shift(wide, q, out_w):
 
     wide: [R, V] (R a multiple of 8), q: [R] float positions (clamped to the
     valid window). Linear in `wide`; q is not differentiated."""
-    base, rem, w = _shift_prep(q.detach(), out_w, wide.shape[1])
-    return _ShiftApply.apply(wide.contiguous(), _row_start(base, rem), w,
-                             out_w)
+    return _ShiftApply.apply(wide.contiguous(),
+                             q.detach().float().contiguous(), out_w)
 
 
 # ---------------------------------------------------------------------------

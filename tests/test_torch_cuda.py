@@ -76,29 +76,26 @@ def test_k1_raises_out_of_scope(cuda):
         k1.conv3x3_valid(x, w.new_zeros(3, 3, 64, 64))
 
 
-# K2 / K3 (csrc/shift.cu) against their plain versions: ragged row counts
-# (not a multiple of the 8-row block), odd out_w, positions at both clamp
-# limits of _shift_prep and tap offsets past the per-block clamp (38).
-SHIFT_SHAPES = [(1003, 640, 131), (37, 384, 128), (8, 3200, 1048)]
+# K2 / K3 (csrc/shift.cu) from q against their plain versions: row counts
+# that are a multiple of the 8-row block and of nothing larger, widths that
+# are and are not whole 16-byte chunks (the vector and the scalar kernel),
+# positions past both clamp limits of _shift_prep and offsets past the
+# per-block clamp (38).
+SHIFT_SHAPES = [(1000, 640, 131), (40, 384, 128), (8, 3200, 1048),
+                (1000, 640, 132)]
 
 
 def _shift_inputs(rows, v_dim, out_w, dtype, cuda):
-    from pasta_tpu_torch.ops import affine_warp as aw
-
     rng = np.random.RandomState(rows)
     hi = v_dim - out_w - 42
     q = rng.rand(rows) * hi
     q[::5] = hi + 10.0             # past the upper clamp
     q[1::7] = -3.0                 # below 0
     q[2::3] += rng.rand(len(q[2::3])) * 60   # spreads past 38 taps
-    pad = (-rows) % 8
-    q = np.concatenate([q, np.repeat(q[-1:], pad)]).astype(np.float32)
-    base, rem, w = aw._shift_prep(torch.from_numpy(q), out_w, v_dim)
-    start = aw._row_start(base, rem)[:rows].contiguous().to(cuda)
-    w = w[:rows].contiguous().to(cuda)
+    q = torch.from_numpy(q.astype(np.float32)).to(cuda)
     a = torch.from_numpy(rng.randn(rows, v_dim).astype(np.float32))
     d = torch.from_numpy(rng.randn(rows, out_w).astype(np.float32))
-    return start, w, a.to(cuda, dtype), d.to(cuda, dtype)
+    return q, a.to(cuda, dtype), d.to(cuda, dtype)
 
 
 @pytest.mark.cuda
@@ -108,16 +105,17 @@ def test_k2_k3_match_plain(cuda, dtype, shape):
     from pasta_tpu_torch.ops import affine_warp as aw
 
     rows, v_dim, out_w = shape
-    start, w, wide, dout = _shift_inputs(rows, v_dim, out_w, dtype, cuda)
+    q, wide, dout = _shift_inputs(rows, v_dim, out_w, dtype, cuda)
     n2, n3 = aw.shift_fwd.launches, aw.shift_bwd.launches
-    got2 = aw.shift_fwd(wide, start, w, out_w)
-    got3 = aw.shift_bwd(dout, start, w, v_dim)
+    got2 = aw.shift_fwd(wide, q, out_w)
+    got3 = aw.shift_bwd(dout, q, v_dim)
     torch.cuda.synchronize()
     assert (aw.shift_fwd.launches, aw.shift_bwd.launches) == (n2 + 1, n3 + 1)
-    ref2 = aw._shift_rows_plain(wide, start, w, out_w)
-    ref3 = aw._shift_rows_adjoint_plain(dout, start, w, v_dim)
+    ref2 = aw.shift_fwd_plain(wide, q, out_w)
+    ref3 = aw.shift_bwd_plain(dout, q, v_dim)
     assert got2.shape == ref2.shape and got3.shape == ref3.shape
-    # both sides sum the taps in fp32 in the same order and round once
+    # both sides round the same two products, add them in fp32 and round
+    # once more (plain's other 38 terms are exact zeros)
     for got, ref in ((got2, ref2), (got3, ref3)):
         scale = ref.float().abs().max().item()
         bound = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-6) * scale
@@ -125,21 +123,110 @@ def test_k2_k3_match_plain(cuda, dtype, shape):
 
 
 @pytest.mark.cuda
-def test_k2_probe_two_taps(cuda):
-    """The probes' form: a start per row (not per 8-row block), 2 taps."""
+@pytest.mark.parametrize("shape", SHIFT_SHAPES)
+def test_k2_row_params_equal_shift_prep(cuda, shape):
+    """The (s, f) the kernel derives from q, bit for bit `_shift_prep`'s,
+    with rows at both clamps of q and at the offset clamp."""
+    from pasta_tpu_torch.ops import affine_warp as aw
+
+    rows, v_dim, out_w = shape
+    q, wide, _ = _shift_inputs(rows, v_dim, out_w, torch.float32, cuda)
+    _, s, f = aw._kernel("shift_fwd", wide, q, None, None, v_dim, out_w,
+                         return_rows=True)
+    s_ref, f_ref = aw._row_params_plain(q, out_w, v_dim)
+    assert s.dtype == s_ref.dtype and torch.equal(s, s_ref)
+    assert torch.equal(f, f_ref)
+    assert s.min().item() == 0 and s.max().item() <= v_dim - out_w - 42
+    if rows > 8:
+        blocks = s.view(-1, 8)
+        assert (blocks - blocks.amin(1, keepdim=True)).max().item() == 38
+
+
+@pytest.mark.cuda
+def test_k2_k3_raise_out_of_scope(cuda):
+    from pasta_tpu_torch.ops import affine_warp as aw
+
+    wide = torch.zeros(16, 256, device=cuda)
+    q = torch.zeros(16, device=cuda)
+    for bad in (lambda: aw.shift_fwd(wide[:12], q[:12], 64),    # R % 8
+                lambda: aw.shift_fwd(wide, q, 220),             # no window
+                lambda: aw.shift_fwd(wide.half(), q, 64),
+                lambda: aw.shift_fwd(wide, q.double(), 64),
+                lambda: aw.shift_fwd(wide[:, ::2], q, 64),
+                lambda: aw.shift_bwd(wide, q.cpu(), 512),
+                lambda: aw.shift_fwd_rows(wide, q, q, 64)):     # start fp32
+        with pytest.raises(ValueError):
+            bad()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,width", [(torch.float32, 333),
+                                         (torch.float32, 336),
+                                         (torch.bfloat16, 336)])
+def test_k2_probe_two_taps(cuda, dtype, width):
+    """The probes' form: (start, f) per row as given, any row count, a start
+    anywhere in the row (columns past the end read as 0)."""
     from pasta_tpu_torch.ops import affine_warp as aw
 
     rng = np.random.RandomState(7)
-    rows, length, width = 37, 520, 333
-    src = torch.from_numpy(rng.rand(rows, length).astype(np.float32)).to(cuda)
-    k = torch.from_numpy(rng.randint(0, length - width - 1, rows).astype(
-        np.int32)).to(cuda)
+    rows, length = 37, 520
+    src = torch.from_numpy(rng.rand(rows, length).astype(np.float32)).to(
+        cuda, dtype)
+    d = torch.from_numpy(rng.rand(rows, width).astype(np.float32)).to(
+        cuda, dtype)
+    k = torch.from_numpy(rng.randint(0, length, rows).astype(np.int32)).to(
+        cuda)
     f = torch.from_numpy(rng.rand(rows).astype(np.float32)).to(cuda)
-    got = aw.shift_fwd(src, k, torch.stack([1 - f, f], 1).contiguous(), width)
+    n2, n3 = aw.shift_fwd.launches, aw.shift_bwd.launches
+    got = aw.shift_fwd_rows(src, k, f, width)
+    got3 = aw.shift_bwd_rows(d, k, f, length)
+    assert (aw.shift_fwd.launches, aw.shift_bwd.launches) == (n2 + 1, n3 + 1)
     idx = k.long()[:, None] + torch.arange(width, device=cuda)[None]
-    want = (torch.gather(src, 1, idx) * (1 - f)[:, None]
-            + torch.gather(src, 1, idx + 1) * f[:, None])
-    assert (got - want).abs().max().item() <= 1e-6
+    padded = torch.nn.functional.pad(src.float(), (0, width + 1))
+    want = (torch.gather(padded, 1, idx) * (1 - f)[:, None]
+            + torch.gather(padded, 1, idx + 1) * f[:, None])
+    bound = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+    assert (got.float() - want).abs().max().item() <= bound
+    ref3 = aw._shift_rows_adjoint_plain(d, k, aw._two_taps(f), length)
+    assert (got3.float() - ref3.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k2_k3_double_backward(cuda, dtype):
+    """R1's pattern through the pair on the card: the gradient of a function
+    of the input gradient, against the same through the plain versions on
+    the CPU. The launches alternate K2, K3, K2, K3 and no prep op runs."""
+    from pasta_tpu_torch.ops import affine_warp as aw
+
+    q, wide, _ = _shift_inputs(40, 384, 128, dtype, cuda)
+
+    def second_order(x, qq):
+        x = x.clone().requires_grad_(True)
+        y = aw._row_shift(x, qq, 128)
+        gx, = torch.autograd.grad(y.float().tanh().sum(), x,
+                                  create_graph=True)
+        g2, = torch.autograd.grad(gx.float().square().sum(), x)
+        return y.detach(), gx.detach(), g2
+
+    n2, n3 = aw.shift_fwd.launches, aw.shift_bwd.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = second_order(wide, q)
+    torch.cuda.synchronize()
+    assert (aw.shift_fwd.launches, aw.shift_bwd.launches) == (n2 + 2, n3 + 2)
+    ops = {e.key for e in prof.key_averages()}
+    assert not ops & {"aten::one_hot", "aten::repeat_interleave",
+                      "aten::floor", "aten::clamp", "aten::amin",
+                      "aten::gather", "aten::scatter"}, ops
+    ref = second_order(wide.cpu(), q.cpu())
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        # bf16: each of up to three chained results is rounded to 2^-9
+        # relative on both sides, in the same order: 2^-6 of the scale
+        bound = (2.0 ** -6 if dtype == torch.bfloat16 else 1e-5) * \
+            r.float().abs().max().item()
+        assert (g.cpu().float() - r.float()).abs().max().item() <= bound
 
 
 @pytest.mark.cuda
