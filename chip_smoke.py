@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-Drives pasta_tpu_torch's two main paths on the card -- 512px try-on serving
-(TryonPipeline.run_batch, fashion Generator config, num_bf16_res=3) and the
+Drives pasta_tpu_torch's main paths on the card -- 512px try-on serving
+(TryonPipeline.run_batch, fashion Generator config, num_bf16_res=3), the
 512px training step of the fashion preset (batch 4, G/D/DP phases, lazy R1,
-EMA, ADA) -- with seeded random weights and seeded synthetic inputs, in
-phases:
+EMA, ADA) and a training run through the command line (dataset files on
+disk, both loaders, the loop, snapshots, an exact resume) -- with seeded
+random weights and seeded synthetic inputs, in phases:
 
   1. device      -- fails without CUDA; prints the card's name, power limit
   2. build       -- compiles csrc/conv3x3.cu (K1) and csrc/shift.cu (K2, K3)
@@ -36,7 +37,20 @@ phases:
                     K1 forward / K1 dX / K2 / K3 launch counts; s/step,
                     sec/kimg, peak memory
   8. train-check -- one fp32 step's per-phase losses and gradients at the
-                    narrow 64px config (ada_p 0, no noise), card against CPU
+                    narrow 64px config (no noise), card against CPU: at
+                    ada_p 0, and at ada_p 1 with the augment's
+                    debug_percentile, so that K2/K3 shift rows by real
+                    offsets inside a step
+  9. train-run   -- writes a synthetic dataset root of 24 persons (directory
+                    and zip); the loaders' items/s with 1 and 8 threads;
+                    upload + assembly ms a batch; the device assembler on
+                    the card against the CPU and against the host loader;
+                    then cli.train.main on the card, fashion preset, batch
+                    4: 6 steps with the device loader on the zip, and a
+                    resume from its checkpoint for 3 more with the host
+                    loader on the directory. Holds stats.jsonl, the grids,
+                    the checkpoint, the resume bit-equal to what was saved,
+                    and K1 / K2 / K3 launches per step equal to phase 7's
 
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; the one
@@ -52,10 +66,15 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
+import functools
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -654,6 +673,7 @@ def phase_train(k1):
     """The fashion preset's training step at batch 4 on the card."""
     from pasta_tpu_torch.cli import bench_train
     from pasta_tpu_torch.train.config import fashion_config
+    from pasta_tpu_torch.train.steps import fetch_metrics
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -676,7 +696,8 @@ def phase_train(k1):
             check(np.isfinite(v), f"train metric {k} = {v}")
         p1 = metrics["ada_p"]
         moved = abs(p1 - p0)
-        check(abs(moved - delta) <= 1e-12 or (moved == 0 and p1 in (0, 1)),
+        # ada_p is float32 on the card, as in the JAX step
+        check(abs(moved - delta) <= 1e-9 or (moved == 0 and p1 in (0, 1)),
               f"ada_p {p0} -> {p1}, step {delta}")
         return p1
 
@@ -684,7 +705,7 @@ def phase_train(k1):
     _, metrics = step(state, batch, gen)
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
-    p = stepped(cfg.augment_p_init, metrics)
+    p = stepped(cfg.augment_p_init, fetch_metrics([metrics])[0])
     host, dev, steps = bench_train.timed_steps(step, state, batch, gen,
                                                N_TRAIN_TIMED)
     for metrics in steps:
@@ -715,46 +736,403 @@ def phase_train(k1):
           f"GiB | launches K1 fwd {counts[0]}, K1 dX {counts[1]}, K2 "
           f"{counts[2]}, K3 {counts[3]} over {n_steps} steps (K1 fp32 "
           f"{n_fp32}, bf16 {counts[0] + counts[1] - n_fp32}) | ada_p "
-          f"{state.ada_p:.6g} | r1 {metrics_r1['r1_penalty']:.4g} dp_r1 "
+          f"{float(state.ada_p):.6g} | r1 {metrics_r1['r1_penalty']:.4g} dp_r1 "
           f"{metrics_r1['dp_r1_penalty']:.4g} | metrics {metrics}",
           flush=True)
     del state, step, batch, before, after
     torch.cuda.empty_cache()
-    return counts, n_fp32
+    return counts, n_fp32, host
 
 
-def phase_train_check():
+@contextlib.contextmanager
+def _augment_percentile(percentile):
+    """Inside: the train step's augment draws nothing and takes every
+    parameter at `percentile` of its distribution (the reference's
+    debug_percentile), the same constant on every device."""
+    from pasta_tpu_torch.train import augment, loss_terms
+
+    original = loss_terms.augment_pipe
+    loss_terms.augment_pipe = functools.partial(
+        augment.augment_pipe, debug_percentile=percentile)
+    try:
+        yield
+    finally:
+        loss_terms.augment_pipe = original
+
+
+def phase_train_check(shift):
     """Per-phase losses and gradients of one fp32 step at the narrow 64px
-    config (ada_p 0, no noise) on the card against the same on the CPU,
-    which the CPU tests hold against the JAX package."""
+    config (no noise) on the card against the same on the CPU, which the
+    CPU tests hold against the JAX package: once with ADA's p at 0 (every
+    transform the identity), once at p = 1 with the augment's
+    debug_percentile (a quarter turn, translations, a scale, a rotation:
+    K2 and K3 shift rows by real offsets inside the step)."""
     from pasta_tpu_torch.losses.vgg import VGG19Features
     from pasta_tpu_torch.train.config import smoke_config
     from pasta_tpu_torch.train.state import batch_to, example_batch, init_state
     from pasta_tpu_torch.train.steps import phase_losses
 
-    cfg = smoke_config(1, batch_size=4, use_noise=False, vgg_weight=20.0,
-                       vgg_bf16=False)
-    res = {}
-    for dev in ("cuda", "cpu"):
-        state = init_state(cfg, seed=0, device=dev)
-        vgg = VGG19Features(seed=3).to(dev).requires_grad_(False)
-        batch = batch_to(example_batch(cfg, np.random.RandomState(0)), dev)
-        gen = torch.Generator(device=dev).manual_seed(0)
-        res[dev] = phase_losses(cfg, state, batch, gen, vgg)
-    worst = []
-    for phase in res["cpu"]:
-        (lg, _, gg), (lc, _, gc) = res["cuda"][phase], res["cpu"][phase]
-        lerr = abs(lg.item() - lc.item()) / max(abs(lc.item()), 1e-6)
-        gnum = sum(((a.cpu() - b).square().sum() for a, b in zip(gg, gc)))
-        gden = sum((b.square().sum() for b in gc))
-        gerr = (gnum / gden.clamp_min(1e-30)).sqrt().item()
-        # the CPU tests' budgets: losses 1e-3 relative, gradients 2e-2 of
-        # their norm (the bf16 two-pass augment rounds differently)
-        check(lerr <= 1e-3 and gerr <= 2e-2,
-              f"train-check {phase}: loss rel {lerr}, grad rel {gerr}")
-        worst.append(f"{phase} loss {lerr:.2g} grad {gerr:.2g}")
-    print(f"[train-check] narrow 64px fp32 card vs CPU, relative: "
-          f"{' | '.join(worst)}", flush=True)
+    def run(cfg):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            state = init_state(cfg, seed=0, device=dev)
+            vgg = VGG19Features(seed=3).to(dev).requires_grad_(False)
+            batch = batch_to(example_batch(cfg, np.random.RandomState(0)),
+                             dev)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            res[dev] = phase_losses(cfg, state, batch, gen, vgg)
+        return res
+
+    common = dict(batch_size=4, use_noise=False, vgg_weight=20.0,
+                  vgg_bf16=False)
+    for tag, p_init, percentile in (("ada_p 0", 0.0, None),
+                                    ("ada_p 1, percentile 0.35", 1.0, 0.35)):
+        cfg = smoke_config(1, augment_p_init=p_init, **common)
+        k2, k3 = shift.shift_fwd.launches, shift.shift_bwd.launches
+        with (_augment_percentile(percentile) if percentile is not None
+              else contextlib.nullcontext()):
+            res = run(cfg)
+        k2, k3 = shift.shift_fwd.launches - k2, shift.shift_bwd.launches - k3
+        check(k2 > 0 and k3 > 0, f"train-check {tag}: K2 {k2}, K3 {k3} "
+              f"launches on the card")
+        worst = []
+        for phase in res["cpu"]:
+            (lg, _, gg), (lc, _, gc) = res["cuda"][phase], res["cpu"][phase]
+            lerr = abs(lg.item() - lc.item()) / max(abs(lc.item()), 1e-6)
+            gnum = sum(((a.cpu() - b).square().sum() for a, b in zip(gg, gc)))
+            gden = sum((b.square().sum() for b in gc))
+            gerr = (gnum / gden.clamp_min(1e-30)).sqrt().item()
+            # the CPU tests' budgets: losses 1e-3 relative, gradients 2e-2
+            # of their norm (the bf16 two-pass augment rounds differently)
+            check(lerr <= 1e-3 and gerr <= 2e-2,
+                  f"train-check {tag} {phase}: loss rel {lerr}, grad rel "
+                  f"{gerr}")
+            worst.append(f"{phase} loss {lerr:.2g} grad {gerr:.2g}")
+        print(f"[train-check] narrow 64px fp32 card vs CPU, {tag} (K2 x{k2},"
+              f" K3 x{k3} on the card), relative: {' | '.join(worst)}",
+              flush=True)
+
+
+N_PERSONS = 24          # the synthetic dataset root of the training run
+RUN_STEPS, RESUME_STEPS, RUN_TICK = 6, 3, 3
+G_FWD_K1 = 26           # one generator forward (a snapshot's G-EMA draw)
+
+
+class _GatesShut:
+    """Stands in for a loader's RandomState with every draw at 0.9: the
+    erasure gate (< 0.8) and the occlusion gate (< 0.9) stay shut on the
+    host and on the device loader alike, whatever their draw order."""
+
+    def rand(self):
+        return 0.9
+
+    def randint(self, low, high=None, size=None):
+        return low
+
+
+def _loader_rates(ts, tloop, root):
+    """items/s of the two loaders through ParallelLoader with 1 and 8
+    threads (host clock; the first batch, which starts the pool, apart)."""
+    rates = {}
+    for impl in ("host", "device"):
+        for workers in (1, 8):
+            ds = ts.TryonTrainDataset(root, seed=0, loader_impl=impl)
+            loader = tloop.ParallelLoader(ds, TRAIN_BATCH, workers, seed=0)
+            batches = iter(loader)
+            next(batches)
+            t0 = time.perf_counter()
+            n = 4
+            for _ in range(n):
+                next(batches)
+            rates[impl, workers] = n * TRAIN_BATCH / (time.perf_counter() - t0)
+            loader.close()
+    return rates
+
+
+def _assemble_checks(ts, tloop, root):
+    """The device assembler on the card against itself on the CPU (tiled
+    both ways) and against the host loader's batch of the same persons with
+    the draws held equal; upload + assembly ms a batch for both loaders."""
+    from pasta_tpu_torch.data import preprocess as pp
+
+    names = pp.as_root(root).list("image")[:TRAIN_BATCH]
+    lean_items, host_items = [], []
+    for name in names:
+        rec = pp.load_person(root, name, with_garment_parsing=True,
+                             pose_raster="device")
+        lean_items.append(ts.preprocess_person_train_lean(rec, _GatesShut()))
+        rec = pp.load_person(root, name, with_garment_parsing=True)
+        host_items.append(ts.preprocess_person_train(rec, _GatesShut()))
+    lean_np, tiled, _ = ts.batch_to_lean_inputs(lean_items)
+    check(tiled, "the synthetic persons do not fit the paste tiles")
+    raw_np = ts.batch_to_raw_inputs(host_items)
+
+    exact = ("real_img", "gt_parsing")
+    masks = ("denorm_upper_mask", "denorm_lower_mask")
+    worst = {}
+    for use_tiles in (True, False):
+        outs = [ts.assemble_train_batch_lean(
+            tloop.upload_batch(lean_np, dev), tiled=use_tiles)
+            for dev in ("cuda", "cpu")]
+        for k, cpu in outs[1].items():
+            gpu = outs[0][k].cpu()
+            check(gpu.shape == cpu.shape and bool(torch.isfinite(gpu).all()),
+                  f"assembler {k}: shape or non-finite")
+            diff = (gpu - cpu).abs()
+            if k in exact:
+                # the card divides by 127.5 through the reciprocal: 1 ulp
+                check(diff.max().item() <= 2.4e-7, f"assembler {k} differs "
+                      f"by {diff.max().item()}")
+            elif k in masks:      # an eroded edge pixel at its threshold
+                frac = (diff > 0).float().mean().item()
+                check(frac <= 1e-4, f"assembler {k}: {frac} of pixels differ")
+                worst[k] = max(worst.get(k, 0.0), frac)
+            else:                 # phase_check's budget for the serving warps
+                span = (cpu.max() - cpu.min()).item()
+                frac = (diff > 1e-2 * span).float().mean().item()
+                check(frac <= 2e-2 and diff.mean().item() <= 1e-3 * span,
+                      f"assembler {k}: frac {frac}, mean {diff.mean()}")
+                worst[k] = max(worst.get(k, 0.0), diff.max().item())
+    lean = {k: v.cpu().numpy() for k, v in ts.assemble_train_batch_lean(
+        tloop.upload_batch(lean_np, "cuda"), tiled=True).items()}
+    host = ts.batch_to_train_inputs(host_items)
+    check(set(lean) == set(host), "assembler keys differ from the host's")
+    # the JAX package's budgets for its device loader against its host one
+    for k in exact:
+        check(np.abs(lean[k] - host[k]).max() <= 1e-5, f"lean vs host {k}")
+    check(np.abs(lean["pose"][..., 3:] - host["pose"][..., 3:]).max() <= 1e-5,
+          "lean vs host: label and bound planes")
+    far = lambda k, sl, tol: float(np.mean(
+        np.abs(lean[k][..., sl] - host[k][..., sl]) > tol))
+    every = slice(None)
+    budgets = [("pose", slice(0, 3), 1e-3, 2e-3), ("retain", every, 1e-3, 1e-3),
+               ("style_input", every, 0.02, 0.03),
+               ("denorm_upper_input", every, 0.02, 0.03),
+               ("denorm_lower_input", every, 0.02, 0.03),
+               ("denorm_upper_mask", every, 0, 0.005),
+               ("denorm_lower_mask", every, 0, 0.005)]
+    fracs = {k: far(k, sl, tol) for k, sl, tol, _ in budgets}
+    for k, _, tol, budget in budgets:
+        check(fracs[k] < budget, f"lean vs host {k}: {fracs[k]} of values "
+              f"beyond {tol} (budget {budget})")
+    t_lean = cuda_ms(lambda: ts.assemble_train_batch_lean(
+        tloop.upload_batch(lean_np, "cuda"), tiled=True), 5)
+    t_host = cuda_ms(lambda: ts.assemble_train_batch(
+        tloop.upload_batch(raw_np, "cuda")), 5)
+    mb = lambda b: sum(v.nbytes for v in b.values()) / 2 ** 20
+    print(f"[train-run] assemble_train_batch_lean card vs CPU (tiled and "
+          f"full canvas): real_img, gt_parsing equal to 2 ulp | worst "
+          f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } (masks: "
+          f"share of pixels; planes: max abs on [-1, 1]) | vs the host "
+          f"loader, share beyond its budget's threshold: "
+          f"{ {k: float(f'{v:.3g}') for k, v in fracs.items()} }", flush=True)
+    print(f"[train-run] upload + assemble, batch {TRAIN_BATCH} (CUDA events, "
+          f"host->card copy included): device loader {t_lean:.2f} ms "
+          f"({mb(lean_np):.1f} MiB raw) | host loader {t_host:.2f} ms "
+          f"({mb(raw_np):.1f} MiB raw)", flush=True)
+
+
+def phase_train_run(k1, step_s):
+    """A training run from files on disk to a checkpoint and back, through
+    cli.train.main; `step_s`: phase 7's s/step on resident tensors."""
+    from pasta_tpu_torch.cli import bench_train
+    from pasta_tpu_torch.cli import train as cli_train
+    from pasta_tpu_torch.data import trainsets as ts
+    from pasta_tpu_torch.data.synthetic import write_dataset_root
+    from pasta_tpu_torch.train import loop as tloop
+
+    tmp = tempfile.mkdtemp(prefix="pasta_smoke_")
+    steps, waits, snaps = [], [], []
+    originals = (tloop.make_train_step, tloop.ParallelLoader,
+                 tloop._save_snapshot)
+
+    def counted_step(cfg, vgg=None):
+        """The loop's train step with its launches and CUDA events kept."""
+        step = originals[0](cfg, vgg)
+
+        def run(state, batch, generator, **kw):
+            first = None
+            if snaps and steps[-1]["run"] == 0:
+                # the resumed run's first step: keep its state as loaded
+                first = {n: {k: v.detach().to("cpu", copy=True) for k, v in
+                             getattr(state, n).state_dict().items()}
+                         for n in ("g", "d", "dp", "g_ema")}
+                first.update({n: {i: {k: v.detach().to("cpu", copy=True)
+                                      for k, v in st.items()}
+                                  for i, st in getattr(state, n).state_dict()[
+                                      "state"].items()}
+                              for n in ("g_opt", "d_opt", "dp_opt")})
+                first.update(step=state.step, ada_p=float(state.ada_p))
+            before = bench_train.kernel_counts()
+            fp32 = k1.conv3x3_valid.launches_fp32
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            out = step(state, batch, generator, **kw)
+            e1.record()
+            steps.append(dict(
+                run=len(snaps), index=state.step - 1, t0=t0, e0=e0, e1=e1,
+                r1=bool(kw.get("do_r1_d")), first=first,
+                fp32=k1.conv3x3_valid.launches_fp32 - fp32,
+                counts=tuple(a - b for a, b in zip(
+                    bench_train.kernel_counts(), before))))
+            return out
+        return run
+
+    class TimedLoader(originals[1]):
+        def __iter__(self):
+            batches = super().__iter__()
+            while True:
+                t0 = time.perf_counter()
+                item = next(batches)
+                waits.append(time.perf_counter() - t0)
+                yield item
+
+    def timed_snapshot(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        originals[2](*args)
+        torch.cuda.synchronize()
+        snaps.append(time.perf_counter() - t0)
+
+    try:
+        t0 = time.perf_counter()
+        root, zroot = os.path.join(tmp, "root"), os.path.join(tmp, "root.zip")
+        write_dataset_root(root, N_PERSONS, 500)
+        write_dataset_root(zroot, N_PERSONS, 500, as_zip=True)
+        print(f"[train-run] {N_PERSONS} synthetic persons written as a "
+              f"directory and as a zip in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        rates = _loader_rates(ts, tloop, root)
+        print(f"[train-run] loader items/s (host clock, 512 px): host loader "
+              f"{rates['host', 1]:.1f} with 1 thread, {rates['host', 8]:.1f} "
+              f"with 8 | device loader's host half {rates['device', 1]:.1f} "
+              f"with 1, {rates['device', 8]:.1f} with 8 | one step needs "
+              f"{TRAIN_BATCH / step_s:.1f} items/s", flush=True)
+        _assemble_checks(ts, tloop, root)
+
+        tloop.make_train_step = counted_step
+        tloop.ParallelLoader = TimedLoader
+        tloop._save_snapshot = timed_snapshot
+        common = ["--outdir", os.path.join(tmp, "runs"), "--cfg", "fashion",
+                  "--batch", str(TRAIN_BATCH), "--tick", str(RUN_TICK),
+                  "--snap", "100", "--workers", "8"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        bench_train.reset_kernel_counts()
+        run1 = cli_train.main(common + [
+            "--data", zroot, "--loader-impl", "device", "--max-steps",
+            str(RUN_STEPS)])
+        ckpt = os.path.join(run1, f"ckpt-{RUN_STEPS:06d}.pt")
+        check(os.path.isfile(ckpt), f"no checkpoint {ckpt}")
+        run2 = cli_train.main(common + [
+            "--data", root, "--loader-impl", "host", "--aug", "fixed", "--p",
+            "0.5", "--resume", ckpt, "--max-steps",
+            str(RUN_STEPS + RESUME_STEPS)])
+        torch.cuda.synchronize()
+        totals = bench_train.kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        (tloop.make_train_step, tloop.ParallelLoader,
+         tloop._save_snapshot) = originals
+
+    try:
+        # stats.jsonl: one finite row a tick
+        for run, want in ((run1, [3, 6]), (run2, [9])):
+            with open(os.path.join(run, "stats.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            check([r["step"] for r in rows] == want,
+                  f"{run}: rows at steps {[r['step'] for r in rows]}")
+            for r in rows:
+                check(r["kimg"] == r["step"] * TRAIN_BATCH / 1000
+                      and np.isfinite(r["sec_per_kimg"]), f"row {r['step']}")
+                for k in ("g_loss", "d_loss", "ada_p", "g_vgg", "r1_penalty"):
+                    check(np.isfinite(r[k]["mean"]) and r[k]["num"] == 3,
+                          f"row {r['step']}: {k} = {r[k]}")
+            last = rows[-1]["step"]
+            import PIL.Image
+            for suffix, n_rows in (("", 2), ("_parsing", 1),
+                                   ("_parsing_color", 1)):
+                img = PIL.Image.open(os.path.join(
+                    run, f"fakes{last:06d}{suffix}.png"))
+                check(img.size == (TRAIN_BATCH * 512, n_rows * 512)
+                      and img.mode == "RGB",
+                      f"grid {suffix}: {img.size} {img.mode}")
+            check(os.path.isfile(os.path.join(run, "log.txt"))
+                  and os.path.isfile(os.path.join(run, f"ckpt-{last:06d}.pt")),
+                  f"{run}: log or checkpoint missing")
+        with open(os.path.join(run1, "stats.jsonl")) as f:
+            tick2 = [json.loads(line) for line in f][1]
+
+        # the step numbers, the lazy-R1 cadence and the launches of each step
+        check([s["index"] for s in steps]
+              == list(range(RUN_STEPS + RESUME_STEPS)),
+              f"steps {[s['index'] for s in steps]}")
+        check([s["r1"] for s in steps] == [True] + [False] * (len(steps) - 1),
+              "the lazy R1 phases ran elsewhere than at step 0 alone")
+        regular = (TRAIN_K1_FWD, TRAIN_K1_DX, TRAIN_K2, TRAIN_K3)
+        with_r1 = tuple(a + b for a, b in zip(
+            regular, (R1_K1_FWD, R1_K1_DX, R1_K2, R1_K3)))
+        for s in steps:
+            want = with_r1 if s["r1"] else regular
+            check(s["counts"] == want and s["fp32"] == TRAIN_K1_FP32,
+                  f"step {s['index']}: launches K1 fwd/dX, K2, K3 "
+                  f"{s['counts']} (fp32 {s['fp32']}) != {want}")
+        in_steps = tuple(sum(s["counts"][i] for s in steps) for i in range(4))
+        want_total = (in_steps[0] + 2 * G_FWD_K1,) + in_steps[1:]
+        check(totals == want_total, f"launches over both runs {totals} != "
+              f"the steps' {in_steps} + two snapshot draws of G")
+
+        # the resumed run started from exactly what was saved
+        saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+        first = steps[RUN_STEPS]["first"]
+        check(first is not None and first["step"] == saved["step"]
+              == RUN_STEPS and first["ada_p"] == saved["ada_p"],
+              "the resumed run's step or ada_p")
+        n_tensors = 0
+        for name in ("g", "d", "dp", "g_ema"):
+            check(sorted(first[name]) == sorted(saved[name]), f"{name} keys")
+            for k, v in saved[name].items():
+                check(torch.equal(first[name][k], v), f"resume: {name}.{k}")
+                n_tensors += 1
+        for name in ("g_opt", "d_opt", "dp_opt"):
+            for idx, st in saved[name]["state"].items():
+                for k, v in st.items():
+                    check(torch.equal(first[name][idx][k], v),
+                          f"resume: {name}[{idx}].{k}")
+                    n_tensors += 1
+
+        # times: the second tick of the first run is three regular steps
+        reg = [s for s in steps if s["run"] == 0 and s["index"] >= RUN_TICK]
+        dev_step = sum(s["e0"].elapsed_time(s["e1"]) for s in reg) / len(reg)
+        gaps = [a["e1"].elapsed_time(b["e0"]) for a, b in zip(reg, reg[1:])]
+        span = reg[0]["e0"].elapsed_time(reg[-1]["e1"])
+        loop_s = tick2["sec_per_kimg"] * TRAIN_BATCH / 1000
+        gaps_host = [a["e1"].elapsed_time(b["e0"]) for a, b in zip(
+            steps[RUN_STEPS:], steps[RUN_STEPS + 1:])]
+        print(f"[train-run] device loader on the zip, {RUN_STEPS} steps, then "
+              f"resumed with the host loader on the directory for "
+              f"{RESUME_STEPS}: {n_tensors} tensors of the resumed state "
+              f"bit-equal to the checkpoint | launches per step K1 fwd/dX, "
+              f"K2, K3: R1 step {with_r1}, regular {regular}, as the bare "
+              f"step's; over both runs {totals}", flush=True)
+        print(f"[train-run] s/step inside the loop (tick 2 of run 1, from "
+              f"stats.jsonl) {loop_s:.4f} against {step_s:.4f} on resident "
+              f"tensors | the step alone {dev_step / 1e3:.4f} s by CUDA "
+              f"events | between two steps the card spends "
+              f"{sum(gaps) / len(gaps):.2f} ms (upload, assembly, waiting), "
+              f"{100 * sum(gaps) / span:.2f}% of the tick; with the host "
+              f"loader {sum(gaps_host) / len(gaps_host):.2f} ms | the host "
+              f"waited for a batch {1e3 * sum(waits) / len(waits):.1f} ms on "
+              f"average, {1e3 * max(waits):.1f} ms at most | snapshot "
+              f"{snaps[0]:.2f} s and {snaps[1]:.2f} s | peak {peak:.2f} GiB",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del steps
+        torch.cuda.empty_cache()
+    return totals
 
 
 def main():
@@ -767,8 +1145,9 @@ def main():
     launches = phase_main(k1, BATCH, N_TIMED)
     phase_check()
     train_rows = phase_kernel_train(k1, shift)
-    counts, n_fp32 = phase_train(k1)
-    phase_train_check()
+    counts, n_fp32, step_s = phase_train(k1)
+    phase_train_check(shift)
+    run_counts = phase_train_run(k1, step_s)
     k1_rows = rows + train_rows["K1"]
 
     def total(rs, key):
@@ -792,11 +1171,17 @@ def main():
     fp32 = [r for r in k1_rows if r["dtype"] == torch.float32]
     bf16 = [r for r in k1_rows if r["dtype"] == torch.bfloat16]
     k1_total = counts[0] + counts[1]
+    # launches: each main path driven with the counts at 0 just before it
+    # and read just after (serving, the bare training steps, the training
+    # run through the command line), summed
     print(json.dumps({"kernels": [
         entry("conv3x3_valid", "pasta_tpu_torch/csrc/conv3x3.cu",
-              "pasta_tpu/ops/pallas_conv.py:139", launches + k1_total,
+              "pasta_tpu/ops/pallas_conv.py:139",
+              launches + k1_total + run_counts[0] + run_counts[1],
               k1_rows, launches_serving=launches, launches_train=counts[0],
-              launches_dx=counts[1], launches_train_fp32=n_fp32,
+              launches_dx=counts[1], launches_train_run=run_counts[0],
+              launches_train_run_dx=run_counts[1],
+              launches_train_fp32=n_fp32,
               launches_train_bf16=k1_total - n_fp32,
               ms_fp32=total(fp32, "ms"), ms_bf16=total(bf16, "ms"),
               bound_ms_fp32=total(fp32, "bound_ms"),
@@ -804,11 +1189,13 @@ def main():
               library_ms_fp32=total(fp32, "library_ms"),
               library_ms_bf16=total(bf16, "library_ms")),
         entry("shift_fwd", "pasta_tpu_torch/csrc/shift.cu",
-              "pasta_tpu/ops/affine_warp.py:142", counts[2],
-              train_rows["K2"]),
+              "pasta_tpu/ops/affine_warp.py:142", counts[2] + run_counts[2],
+              train_rows["K2"], launches_train=counts[2],
+              launches_train_run=run_counts[2]),
         entry("shift_bwd", "pasta_tpu_torch/csrc/shift.cu",
-              "pasta_tpu/ops/affine_warp.py:181", counts[3],
-              train_rows["K3"]),
+              "pasta_tpu/ops/affine_warp.py:181", counts[3] + run_counts[3],
+              train_rows["K3"], launches_train=counts[3],
+              launches_train_run=run_counts[3]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

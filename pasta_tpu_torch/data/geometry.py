@@ -1,11 +1,14 @@
 """Keypoint-driven patch geometry: body-part quads and homographies.
 
-The port's own copy of what it uses from `pasta_tpu/data/geometry.py`,
-unchanged in behaviour (tests/test_torch_host.py holds each name equal to
-its original): the 10 body parts, their source quads with the keypoint
-fallback chains, and the batched 8x8 DLT solve of the perspective
-transforms that cut garment patches to 128^2 and paste them back. Parity
-target: UvitonDataset.get_crop (the reference's training/dataset.py:828-997).
+The port's own copy of `pasta_tpu/data/geometry.py`, unchanged in behaviour
+(tests/test_torch_host.py holds each name equal to its original): the 10
+body parts, their source quads with the keypoint fallback chains, and the
+8x8 DLT solve of the perspective transforms that cut garment patches to
+128^2 and paste them back -- batched for the device path's host stage
+(`perspective_batch`, `part_quads`), one part at a time for the host
+loader's cv2 warps (`get_perspective_transform`, `get_crop_matrices`).
+Parity target: UvitonDataset.get_crop (the reference's
+training/dataset.py:828-997).
 """
 
 from __future__ import annotations
@@ -32,6 +35,28 @@ BODY_PARTS = [
 SLEEVE_PARTS = (2, 3, 4, 5)
 # Parts that also carry the lower garment (torso + legs).
 LOWER_PARTS = (0, 6, 7, 8, 9)
+
+
+def get_perspective_transform(src, dst):
+    """3x3 homography mapping 4 src points to 4 dst points.
+
+    Same math as cv2.getPerspectiveTransform: solve the 8x8 linear system
+    for [a,b,c,d,e,f,g,h] with i=1.
+    """
+    src = np.asarray(src, np.float64)
+    dst = np.asarray(dst, np.float64)
+    a = np.zeros((8, 8), np.float64)
+    rhs = np.zeros(8, np.float64)
+    for i in range(4):
+        x, y = src[i]
+        u, v = dst[i]
+        a[2 * i] = [x, y, 1, 0, 0, 0, -u * x, -u * y]
+        a[2 * i + 1] = [0, 0, 0, x, y, 1, -v * x, -v * y]
+        rhs[2 * i] = u
+        rhs[2 * i + 1] = v
+    coeffs = np.linalg.solve(a, rhs)
+    m = np.append(coeffs, 1.0).reshape(3, 3)
+    return m.astype(np.float64)
 
 
 def _valid(confidences):
@@ -199,3 +224,20 @@ def part_quads(joints, o_w, o_h):
             quads[i] = q
             valid[i] = True
     return quads, valid
+
+
+def get_crop_matrices(joints, part_index, patch_w, patch_h, o_w, o_h):
+    """(M, M_inv) perspective transforms for one body part, or (None, None).
+
+    M maps image coords -> patch coords ([0,patch_w]x[0,patch_h]);
+    M_inv maps back.
+    """
+    ar = 0.5 if part_index < 6 else 0.4
+    quad = _part_quad(joints, BODY_PARTS[part_index], o_w, o_h, ar)
+    if quad is None:
+        return None, None
+    dst = np.float32(
+        [[0, 0], [0, patch_h], [patch_w, patch_h], [patch_w, 0]])
+    m = get_perspective_transform(quad, dst)
+    m_inv = get_perspective_transform(dst, quad)
+    return m.astype(np.float32), m_inv.astype(np.float32)

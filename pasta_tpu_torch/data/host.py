@@ -1,4 +1,4 @@
-"""Numpy-only host stage of the serving path.
+"""Numpy-only host stage of the serving path and of the device loader.
 
 These functions live in JAX-package modules that import jax at module top
 (`pasta_tpu/serving.py`, `pasta_tpu/data/device_warp.py`,
@@ -8,8 +8,8 @@ in behaviour (tests/test_torch_host.py holds them equal to the originals):
   host_prepare                               <- serving.py
   host_matrices_for_pair, paste_tile_layout,
   cut_window_layout, part_layouts_for_pair   <- data/device_warp.py
-  pose_device_params, _winding_normalized,
-  palm_device_params                         <- data/device_cond.py
+  pose_device_params, flip_pose_params,
+  _winding_normalized, palm_device_params    <- data/device_cond.py
 
 What they use of `pasta_tpu/data/preprocess.py`, `geometry.py` and `pose.py`
 is in the port's own modules of the same names beside this one.
@@ -76,6 +76,37 @@ def pose_device_params(keypoints, img_h, img_w, left):
         limb_pts=limb_pts, limb_valid=limb_valid,
         joint_pts=joint_pts, joint_valid=joint_valid,
         pose_xlim=np.asarray([left, left + img_w], np.int32),
+    )
+
+
+def flip_pose_params(params, res):
+    """x-flip pose_device_params output on the `res`-wide padded canvas.
+
+    Coordinates mirror; limb/joint identities swap left<->right so the
+    raster colors stay side-correct (dataset --mirror xflip)."""
+    from .pose import OPENPOSE_FLIP
+
+    swap = {i + 1: OPENPOSE_FLIP[i] + 1 for i in range(18)}  # 1-based
+    limb_perm = []
+    index_of = {tuple(p): i for i, p in enumerate(LIMB_SEQ)}
+    for f1, t1 in LIMB_SEQ:
+        limb_perm.append(index_of[(swap[f1], swap[t1])])
+    limb_perm = np.asarray(limb_perm)
+    joint_perm = np.asarray(OPENPOSE_FLIP)
+
+    limb_pts = np.asarray(params["limb_pts"])[limb_perm].copy()
+    limb_valid = np.asarray(params["limb_valid"])[limb_perm].copy()
+    limb_pts[..., 0] = np.where(
+        limb_valid[:, None], res - 1 - limb_pts[..., 0], limb_pts[..., 0])
+    joint_pts = np.asarray(params["joint_pts"])[joint_perm].copy()
+    joint_valid = np.asarray(params["joint_valid"])[joint_perm].copy()
+    joint_pts[..., 0] = np.where(
+        joint_valid, res - 1 - joint_pts[..., 0], joint_pts[..., 0])
+    lo, hi = (int(v) for v in np.asarray(params["pose_xlim"]))
+    return dict(
+        limb_pts=limb_pts, limb_valid=limb_valid,
+        joint_pts=joint_pts, joint_valid=joint_valid,
+        pose_xlim=np.asarray([res - hi, res - lo], np.int32),
     )
 
 

@@ -1,16 +1,24 @@
-"""OpenPose-18 keypoint tables and the quad rasters of the palm masks.
+"""OpenPose-18 keypoint tables, the host stick-figure raster and the quad
+rasters of the palm masks.
 
-The port's own copy of what it uses from `pasta_tpu/data/pose.py`,
-unchanged in behaviour (tests/test_torch_host.py holds each name equal to
-its original): the limb and colour tables, the joint order of the patch
-geometry, the half-plane quad fill, the oriented rectangle around a limb
-segment and the palm mask built from them. Parity targets in the reference's
-training/dataset.py: limbseq / kptcolors (:44-52), get_hand_mask / get_palm
-(:705-775, with training/utils.py:10-75; pycocotools' polygon fill replaced
-by a vectorized half-plane point-in-quad test).
+The port's own copy of `pasta_tpu/data/pose.py`, unchanged in behaviour
+(tests/test_torch_host.py holds each name equal to its original): the limb
+and colour tables, the joint order of the patch geometry, the stick-figure
+raster of the host loader with its keypoint-file reader, the half-plane
+quad fill, the oriented rectangle around a limb segment, the palm mask
+built from them and the left/right swap of an x-flip. Parity targets in the
+reference's training/dataset.py: limbseq / kptcolors (:44-52), get_joints
+(:815-823), draw_pose_from_cords (:779-813; cv2 5px limb lines and radius-5
+joint disks, knees and ankles near the borders invalidated in place),
+get_hand_mask / get_palm (:705-775, with training/utils.py:10-75;
+pycocotools' polygon fill replaced by a vectorized half-plane
+point-in-quad test).
 """
 
 from __future__ import annotations
+
+import json
+import math
 
 import cv2
 import numpy as np
@@ -34,6 +42,80 @@ JOINT_ORDER = [
     "lelbow", "lwrist", "rhip", "rknee", "rankle", "lhip", "lknee",
     "lankle", "reye", "leye", "rear", "lear",
 ]
+
+
+def _disk_coords(cx_row, cy_col, radius, shape):
+    """Filled-circle pixel coords, replacing skimage.draw.circle (which the
+    reference pins to skimage<=0.18; README.md:16)."""
+    h, w = shape[:2]
+    r0 = max(int(math.floor(cx_row - radius)), 0)
+    r1 = min(int(math.ceil(cx_row + radius)) + 1, h)
+    c0 = max(int(math.floor(cy_col - radius)), 0)
+    c1 = min(int(math.ceil(cy_col + radius)) + 1, w)
+    if r0 >= r1 or c0 >= c1:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    rr, cc = np.mgrid[r0:r1, c0:c1]
+    keep = (rr - cx_row) ** 2 + (cc - cy_col) ** 2 < radius ** 2
+    return rr[keep], cc[keep]
+
+
+def draw_pose(pose_joints, img_size=(512, 320), radius=5, draw_limbs=True):
+    """Rasterize an OpenPose skeleton to an RGB uint8 image.
+
+    Mutates `pose_joints` like the reference: knee/ankle joints hugging the
+    border get confidence 0.01 (so downstream get_crop treats them invalid).
+
+    Args:
+        pose_joints: [18, 3] float array (x, y, confidence). MUTATED.
+        img_size:    (H, W).
+
+    Returns:
+        (colors [H, W, 3] uint8, pose_joints).
+    """
+    colors = np.zeros(tuple(img_size) + (3,), dtype=np.uint8)
+    if draw_limbs:
+        for i, (f1, t1) in enumerate(LIMB_SEQ):
+            f, t = f1 - 1, t1 - 1
+            if pose_joints[f][2] < 0.05 or pose_joints[t][2] < 0.05:
+                continue
+            p_from = (int(pose_joints[f][0]), int(pose_joints[f][1]))
+            p_to = (int(pose_joints[t][0]), int(pose_joints[t][1]))
+            cv2.line(colors, p_from, p_to, KPT_COLORS[i], 5)
+
+    for i, joint in enumerate(pose_joints):
+        if pose_joints[i][2] < 0.05:
+            continue
+        if i in (9, 10, 12, 13):  # knees/ankles near borders -> invalidate
+            if (
+                pose_joints[i][0] <= 0
+                or pose_joints[i][1] <= 0
+                or pose_joints[i][0] >= img_size[1] - 50
+                or pose_joints[i][1] >= img_size[0] - 50
+            ):
+                pose_joints[i][2] = 0.01
+                continue
+        rr, cc = _disk_coords(int(joint[1]), int(joint[0]), radius, img_size)
+        colors[rr, cc] = KPT_COLORS[i]
+    return colors, pose_joints
+
+
+def load_keypoints(path, img_size=(512, 320)):
+    """Load an OpenPose JSON (path or file-like) and rasterize the skeleton.
+
+    Returns (pose_img [H, W, 3] uint8, keypoints [18, 3]).
+    """
+    if hasattr(path, "read"):
+        data = json.load(path)
+    else:
+        with open(path, "r") as f:
+            data = json.load(f)
+    if len(data["people"]) == 0:
+        keypoints = np.zeros((18, 3))
+    else:
+        keypoints = np.array(
+            data["people"][0]["pose_keypoints_2d"]).reshape(-1, 3)
+    pose_img, keypoints = draw_pose(keypoints, img_size)
+    return pose_img, keypoints
 
 
 def _fill_quad(quad_xy, shape):
@@ -146,3 +228,17 @@ def get_palm_mask(keypoints, parsing):
     left = _palm_side(keypoints[[5, 6, 7], :], p2 == 14, img_h, img_w)
     right = _palm_side(keypoints[[2, 3, 4], :], p2 == 15, img_h, img_w)
     return (left | right).astype(np.uint8)[..., None]
+
+
+# OpenPose-18 left/right joint swap (0-based): shoulders/elbows/wrists,
+# hips/knees/ankles, eyes, ears. Used by the dataset --mirror xflip.
+OPENPOSE_FLIP = [0, 1, 5, 6, 7, 2, 3, 4, 11, 12, 13, 8, 9, 10, 15, 14, 17, 16]
+
+
+def flip_keypoints(keypoints, width):
+    """x-flip [18, 3] keypoints on a `width`-wide canvas, swapping L/R
+    joints. Invalid joints (conf < 0.05) keep their coordinates."""
+    kps = np.asarray(keypoints)[OPENPOSE_FLIP].copy()
+    valid = kps[:, 2] >= 0.05
+    kps[valid, 0] = width - 1 - kps[valid, 0]
+    return kps

@@ -7,11 +7,21 @@ polygons along the limbs, and a 512x512 uint8 image coloured by label. The
 records are `data.preprocess.PersonRecord`s shaped as
 `load_person(..., pose_raster="device")` returns them (a 512x320 original
 padded to 512x512, `pose_params` from `data.host.pose_device_params`).
+
+`write_dataset_root` writes such records as the files of a dataset root
+(directory or zip), so that the training loaders, which read files, have
+something to read where no dataset can be fetched.
 """
 
 from __future__ import annotations
 
+import io
+import json
+import os
+import zipfile
+
 import numpy as np
+import PIL.Image
 
 from .host import pose_device_params
 from .pose import _fill_quad
@@ -119,3 +129,64 @@ def make_garment(seed, jitter=3.0):
     """A synthetic clothes record: a person wearing a sleeved top, with
     `garment_parsing` (sleeves 10/11) set."""
     return make_person(seed, jitter=jitter, garment=True)
+
+
+def _png_bytes(array):
+    buf = io.BytesIO()
+    PIL.Image.fromarray(array).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def write_dataset_root(path, n, seed, as_zip=False):
+    """Write `n` synthetic persons (`make_garment(seed + i)`) as a dataset
+    root in the layout `data/roots.py` reads:
+
+        image/<name>.png                    512x320 RGB (PNG: decodes exactly)
+        keypoints/<name>_keypoints.json     OpenPose people[0].pose_keypoints_2d
+        parsing/<name>.png                  CIHP labels, 8-bit gray
+        garment_parsing/<name>.png          sleeve labels 10/11, 8-bit gray
+        dataset.json                        the manifest
+
+    `path` is a directory, or the .zip file to write with `as_zip`. The
+    files hold the unpadded 512x320 originals with keypoints in their
+    coordinates; `load_person` pads them back to the records drawn here.
+    Returns the image file names, sorted as `DataRoot.list("image")` gives
+    them."""
+    if as_zip:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        zf = zipfile.ZipFile(path, "w", zipfile.ZIP_STORED)
+
+        def write(rel, data):
+            zf.writestr(rel, data)
+    else:
+        zf = None
+
+        def write(rel, data):
+            full = os.path.join(path, rel)
+            os.makedirs(os.path.dirname(full), exist_ok=True)
+            with open(full, "wb") as f:
+                f.write(data)
+
+    manifest = []
+    cols = slice(LEFT, LEFT + ORIG_W)
+    try:
+        for i in range(n):
+            rec = make_garment(seed + i)
+            stem = f"{rec.name}_{i:04d}"
+            kp = rec.keypoints.copy()
+            kp[:, 0] -= LEFT
+            write(f"image/{stem}.png", _png_bytes(rec.image[:, cols]))
+            write(f"keypoints/{stem}_keypoints.json", json.dumps(
+                {"people": [{"pose_keypoints_2d": kp.reshape(-1).tolist()}]}
+            ).encode())
+            write(f"parsing/{stem}.png", _png_bytes(rec.parsing[:, cols, 0]))
+            write(f"garment_parsing/{stem}.png",
+                  _png_bytes(rec.garment_parsing[:, cols, 0]))
+            manifest.append(dict(name=f"{stem}.png", source="synthetic",
+                                 has_garment_parsing=True))
+        write("dataset.json", json.dumps(
+            dict(images=manifest, count=n)).encode())
+    finally:
+        if zf is not None:
+            zf.close()
+    return sorted(m["name"] for m in manifest)

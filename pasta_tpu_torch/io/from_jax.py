@@ -17,6 +17,13 @@ gives it) becomes a strict-loadable state dict for the port's `Generator`:
 (the same rules, plus the epilogue fc: the JAX package flattens the 4x4
 features NHWC, the reference and the port NCHW), and
 `vgg19_jax_to_state_dict` inverts `losses/vgg.py::import_vgg19_torch_state`.
+
+The way back, for a training state saved by the port and read by the JAX
+package: `state_dict_to_jax` and `discriminator_state_dict_to_jax` are the
+port's own copy of `import_generator_state` / `import_discriminator_state`
+(the same name mapping and layout rules, on {name: numpy array}), so
+`jax_to_state_dict(state_dict_to_jax(sd)) == sd`. They serve Adam's moments
+too, which have their parameters' names and layouts.
 """
 
 from __future__ import annotations
@@ -103,3 +110,71 @@ def load_npz(path) -> Dict[str, torch.Tensor]:
                 node = node.setdefault(seg, {})
             node[segs[-1]] = data[key]
     return jax_to_state_dict(tree)
+
+
+# torch containers whose children are named by index ("model.0", ...); the
+# JAX package keeps the joined name as a single module key.
+_SEQ_PREFIXES = ("model", "feat_enc", "spade_encoder")
+_BUFFER_LEAVES = ("noise_const", "w_avg")
+
+
+def _key_to_jax_path(key):
+    """Port state-dict key -> (JAX path segments, "params" | "buffers")."""
+    parts = key.split(".")
+    merged = []
+    i = 0
+    while i < len(parts):
+        if (parts[i] in _SEQ_PREFIXES and i + 1 < len(parts)
+                and parts[i + 1].isdigit()):
+            merged.append(parts[i] + "." + parts[i + 1])
+            i += 2
+        else:
+            merged.append(parts[i])
+            i += 1
+    leaf = merged[-1]
+    collection = "buffers" if leaf in _BUFFER_LEAVES else "params"
+    if len(merged) >= 2 and merged[-2] == "linear":
+        merged[-1] = {"weight": "kernel", "bias": "bias"}[leaf]
+    return tuple(merged), collection
+
+
+def _leaf_to_jax(path, value, epilogue_fc):
+    leaf = path[-1]
+    if leaf == "kernel":                               # [O, I] -> [I, O]
+        return value.T
+    if leaf in ("weight", "m_weight1", "m_weight2") and value.ndim == 4:
+        return value.transpose(2, 3, 1, 0)             # OIHW -> HWIO
+    if (epilogue_fc and leaf == "weight" and value.ndim == 2
+            and path[-3:-1] == ("b4", "fc")):
+        out_f, in_f = value.shape                      # CHW -> HWC flatten
+        side = _EPILOGUE_RESOLUTION
+        return (value.reshape(out_f, in_f // (side * side), side, side)
+                .transpose(0, 2, 3, 1).reshape(out_f, in_f))
+    return value
+
+
+def _to_jax(state, epilogue_fc):
+    out = {"params": {}, "buffers": {}}
+    for key, value in state.items():
+        value = (value.detach().cpu().numpy() if torch.is_tensor(value)
+                 else np.asarray(value))
+        path, collection = _key_to_jax_path(key)
+        node = out[collection]
+        for seg in path[:-1]:
+            node = node.setdefault(seg, {})
+        # own C-ordered copy (np.ascontiguousarray would make 0-d 1-d)
+        node[path[-1]] = np.array(_leaf_to_jax(path, value, epilogue_fc),
+                                  order="C")
+    return out
+
+
+def state_dict_to_jax(state) -> Dict[str, Any]:
+    """Port Generator state dict (tensors or numpy arrays by name) -> the
+    JAX package's {"params", "buffers"} trees with numpy leaves."""
+    return _to_jax(state, epilogue_fc=False)
+
+
+def discriminator_state_dict_to_jax(state) -> Dict[str, Any]:
+    """Port Discriminator state dict -> the JAX package's {"params"} tree;
+    the epilogue fc weight goes from CHW to HWC flatten order."""
+    return _to_jax(state, epilogue_fc=True)

@@ -43,6 +43,7 @@ partitioning and is not ported. `bilinear_warp_gather` is the test oracle.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -485,27 +486,52 @@ def _downsample_matrix(f, n_in, down=2, extra_pad=0):
         pad1=extra_pad + (fl - down) // 2, flip_filter=True, gain=1)
 
 
+@functools.lru_cache(maxsize=None)
+def _fir_matrix_host(kind, taps, n_in, extra_pad):
+    """The numpy build of one FIR matrix, once per (kind, taps, n_in,
+    extra_pad); `taps` is a tuple so that the key is hashable."""
+    if kind == "up":
+        return _upsample_matrix(taps, n_in)
+    return _downsample_matrix(taps, n_in, extra_pad=extra_pad)
+
+
+# (host key, device, dtype) -> the uploaded matrix
+_FIR_MATRICES = {}
+
+
+def _fir_matrix(kind, taps, n_in, extra_pad, device, dtype):
+    """`_upsample_matrix` / `_downsample_matrix` as a tensor on `device`:
+    built once on the host, uploaded once per device and dtype."""
+    key = (kind, taps, n_in, extra_pad, device, dtype)
+    m = _FIR_MATRICES.get(key)
+    if m is None:
+        m = torch.from_numpy(
+            _fir_matrix_host(kind, taps, n_in, extra_pad)).to(
+                device=device, dtype=dtype)
+        _FIR_MATRICES[key] = m
+    return m
+
+
 def geom_resample_twopass(images, mat_pix, f_taps, margin):
     """The ADA geometric stage as one planar pipeline: reflect-pad by
     `margin`, 2x FIR upsample, affine warp (`mat_pix` in up-canvas pixel
     coordinates), 2x FIR downsample with the margin cropped off. NHWC in
     and out; every 2x-canvas intermediate is planar [n, c, Y, X] and the
-    FIR passes are matmuls."""
+    FIR passes are matmuls. The two FIR matrices are constants of the
+    shape: after the first call nothing is built on the host or
+    uploaded."""
     n, h, w, c = images.shape
     if h != w:
         raise ValueError("two-pass warp assumes a square canvas")
-    f_taps = np.asarray(f_taps)
+    taps = tuple(float(t) for t in np.asarray(f_taps).ravel())
     xp = images.permute(0, 3, 1, 2)
     xp = F.pad(xp, (margin, margin, margin, margin), mode="reflect")
     npad = h + 2 * margin
-    u = torch.from_numpy(_upsample_matrix(f_taps, npad)).to(
-        device=xp.device, dtype=xp.dtype)
+    u = _fir_matrix("up", taps, npad, 0, xp.device, xp.dtype)
     xp = torch.matmul(xp, u.t())                 # upsample x
     xp = torch.matmul(u, xp)                     # upsample y
     xp = _warp_core_planar(xp, mat_pix)
-    d = torch.from_numpy(
-        _downsample_matrix(f_taps, 2 * npad, extra_pad=-2 * margin)).to(
-            device=xp.device, dtype=xp.dtype)
+    d = _fir_matrix("down", taps, 2 * npad, -2 * margin, xp.device, xp.dtype)
     xp = torch.matmul(xp, d.t())                 # downsample x + crop
     xp = torch.matmul(d, xp)                     # downsample y + crop
     return xp.permute(0, 2, 3, 1)

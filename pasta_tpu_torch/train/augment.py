@@ -163,7 +163,8 @@ def augment_pipe(images, p, generator, cfg: AugmentConfig,
 
     Args:
         images: [N, H, W, C] float, square; C in {1, 3}.
-        p:      float in [0, 1], the ADA-controlled knob.
+        p:      the ADA-controlled knob in [0, 1]: a float, or a 0-d tensor
+            on the images' device (the train step's, read without a sync).
         generator: torch.Generator on the images' device (all draws).
         cfg:    AugmentConfig; a multiplier of 0 skips its transform.
         debug_percentile: float in [0, 1) -- deterministic parameters
@@ -173,7 +174,7 @@ def augment_pipe(images, p, generator, cfg: AugmentConfig,
     """
     n, height, width, channels = images.shape
     dev = images.device
-    p = float(p)
+    p = torch.as_tensor(p, dtype=torch.float32, device=dev)
     dp = debug_percentile
 
     def uniform(*shape):
@@ -223,7 +224,7 @@ def augment_pipe(images, p, generator, cfg: AugmentConfig,
             s = full((n,), np.exp2(erfinv(dp * 2 - 1) * cfg.scale_std))
         g_inv = g_inv @ _scale2d(1 / s, 1 / s)
         used_geom = True
-    p_rot = 1 - np.sqrt(np.clip(1 - cfg.rotate * p, 0, 1))
+    p_rot = 1 - torch.sqrt(torch.clamp(1 - cfg.rotate * p, 0, 1))
     if cfg.rotate > 0:
         theta = (uniform(n) * 2 - 1) * np.pi * cfg.rotate_max
         theta = torch.where(uniform(n) < p_rot, theta, 0.0)

@@ -12,9 +12,11 @@ the port (the two-pass warp with K2/K3) and is not a field. The options
 of the next slice -- `grad_accum`, `reuse_g_fakes`, `pl_weight` (Gpl),
 `double_d_parsing`, `freeze_d_layers`, `contextual_weight`,
 `strict_phase_noise=False` and more than one GPU (`data_axis_size`) --
-raise if set to anything but their default. The training loop's
-`total_kimg` and the path-length regularizer's `g_reg_interval` come with
-the loop and with Gpl; `ada_interval` is unused in the JAX package too.
+raise if set to anything but their default. The path-length regularizer's
+`g_reg_interval`, `pl_batch_shrink` and `pl_decay` come with Gpl,
+`metric_items` with the in-training evaluator; `ada_interval` is unused in
+the JAX package too, and `style_mixing_prob` is a field there with no
+effect.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ class TrainConfig:
     adam_beta1: float = 0.0
     adam_beta2: float = 0.99
     adam_eps: float = 1e-8
+    total_kimg: int = 10000
 
     # objectives
     r1_gamma: float = 10.0
@@ -80,6 +83,11 @@ class TrainConfig:
     augment_p_init: float = 0.0
     use_ada: bool = True
 
+    # Training data loader ('host' | 'device'): 'device' keeps only decode
+    # and scalar geometry on the host and runs the per-sample warps and
+    # rasters on the card (data/trainsets.py::assemble_train_batch_lean).
+    loader_impl: str = "host"
+
     # Mixed precision: the D's top resolutions in bf16 (the reference's
     # fp16 blocks), the G in fp32 unless g_num_bf16_res > 0, the VGG19
     # input in bf16.
@@ -93,6 +101,9 @@ class TrainConfig:
                 raise NotImplementedError(
                     f"TrainConfig.{name}={getattr(self, name)!r} is not "
                     f"ported yet (only {value!r})")
+        if self.loader_impl not in ("host", "device"):
+            raise ValueError(f"loader_impl {self.loader_impl!r}: "
+                             "'host' or 'device'")
 
     def lazy_reg_scale(self, interval):
         """Lazy-regularization hyperparameter scaling
@@ -117,6 +128,7 @@ def smoke_config(n_devices=1, **overrides) -> TrainConfig:
         data_axis_size=n_devices,
         mbstd_group_size=2,
         vgg_weight=0.0,
+        total_kimg=1,
         d_num_bf16_res=0,   # fp32 smoke numerics
     )
     defaults.update(overrides)

@@ -29,7 +29,8 @@ class TrainState:
     dp_opt: torch.optim.Optimizer
     step: int = 0
     cur_nimg: int = 0
-    ada_p: float = 0.0
+    # 0-d float32 on the models' device: the step reads and moves it there
+    ada_p: torch.Tensor = None
 
 
 def make_models(cfg: TrainConfig, seed=0):
@@ -97,4 +98,6 @@ def init_state(cfg: TrainConfig, seed=0, device="cuda") -> TrainState:
     g_ema = copy.deepcopy(g).requires_grad_(False)
     g_opt, d_opt, dp_opt = make_optimizers(cfg, g, d, dp)
     return TrainState(g=g, d=d, dp=dp, g_ema=g_ema, g_opt=g_opt, d_opt=d_opt,
-                      dp_opt=dp_opt, ada_p=float(cfg.augment_p_init))
+                      dp_opt=dp_opt,
+                      ada_p=torch.tensor(cfg.augment_p_init,
+                                         dtype=torch.float32, device=device))

@@ -12,6 +12,12 @@ Gradients are taken with torch.autograd.grad with respect to the updated
 module's parameters only, sanitized (nan -> 0, +-inf -> +-1e5) where the
 JAX step sanitizes them (Gmain, Dmain and the R1 phases), and applied by
 that module's Adam. The state is updated in place.
+
+Nothing in a step waits for the card: `state.ada_p` is a 0-d float32 tensor
+on the models' device, the controller moves it there, and the step's
+metrics come back as detached 0-d tensors. `fetch_metrics` brings the
+metrics of any number of steps to the host in one transfer (the training
+loop does so once a tick).
 """
 
 from __future__ import annotations
@@ -77,13 +83,26 @@ def ema_update(cfg, state):
 def ada_update(cfg, ada_p, real_signs):
     """ADA controller (training_loop_fullbody.py:656-660, applied every
     step): p moves by sign(E[sign(D(real))] - target) * batch / (ada_kimg
-    * 1000), clipped to [0, 1]."""
+    * 1000), clipped to [0, 1]. float32 tensor math on ada_p's device, as
+    the JAX step's; numbers are taken as tensors."""
+    ada_p = torch.as_tensor(ada_p, dtype=torch.float32)
     if not cfg.use_ada:
         return ada_p
-    diff = real_signs - cfg.ada_target
-    sign = (diff > 0) - (diff < 0)
-    return min(max(ada_p + sign * cfg.batch_size / (cfg.ada_kimg * 1000),
-                   0.0), 1.0)
+    real_signs = torch.as_tensor(real_signs, dtype=torch.float32,
+                                 device=ada_p.device)
+    adjust = (torch.sign(real_signs - cfg.ada_target)
+              * cfg.batch_size / (cfg.ada_kimg * 1000))
+    return torch.clamp(ada_p + adjust, 0.0, 1.0)
+
+
+def fetch_metrics(steps_metrics):
+    """[{name: 0-d tensor or number}] of any number of steps -> the same
+    with Python floats, through one device-to-host transfer."""
+    tensors = [v.float() for m in steps_metrics for v in m.values()
+               if torch.is_tensor(v)]
+    values = iter(torch.stack(tensors).tolist() if tensors else ())
+    return [{k: next(values) if torch.is_tensor(v) else float(v)
+             for k, v in m.items()} for m in steps_metrics]
 
 
 def _style_code(state, batch):
@@ -155,7 +174,8 @@ def make_train_step(cfg, vgg=None):
 
     batch: dict of tensors on the models' device (`state.batch_to`);
     generator: torch.Generator on that device, for the G noise and the ADA
-    draws; metrics: dict of Python floats.
+    draws; metrics: dict of detached 0-d tensors on that device (and plain
+    zeros for a lazy phase that did not run), for `fetch_metrics`.
     """
     def cores(state):
         return build_loss_cores(cfg, state.d, state.dp, vgg)
@@ -183,8 +203,7 @@ def make_train_step(cfg, vgg=None):
                               sanitize=False))
         ema_update(cfg, state)
         ada_p_pre = state.ada_p
-        state.ada_p = ada_update(cfg, state.ada_p,
-                                 d_metrics["real_signs"].item())
+        state.ada_p = ada_update(cfg, state.ada_p, d_metrics["real_signs"])
         state.step += 1
         state.cur_nimg += cfg.batch_size
         return dict(ada_p=state.ada_p, **metrics), ada_p_pre
@@ -204,6 +223,6 @@ def make_train_step(cfg, vgg=None):
             metrics.update(r1_d_step(state, batch, ada_p_pre, generator))
         if do_r1_dp:
             metrics.update(r1_dp_step(state, batch))
-        return state, {k: float(v) for k, v in metrics.items()}
+        return state, metrics
 
     return train_step

@@ -404,6 +404,50 @@ def test_geom_resample_twopass_vs_jax(case, dtype):
     np.testing.assert_allclose(got.float().numpy(), ref, atol=atol, rtol=0)
 
 
+def test_geom_resample_twopass_builds_its_fir_matrices_once(monkeypatch):
+    """The stage's two FIR matrices are constants of (taps, n, margin):
+    the numpy build runs once for each, a second call builds and uploads
+    nothing and gives the first call's output bit for bit, and both equal
+    what matrices built afresh give; the JAX stage agrees as before
+    (fp32, 1e-5)."""
+    P._fir_matrix_host.cache_clear()
+    P._FIR_MATRICES.clear()
+    built = []
+    build = P.upfirdn1d_matrix
+    monkeypatch.setattr(P, "upfirdn1d_matrix",
+                        lambda *a, **kw: built.append(1) or build(*a, **kw))
+    rng = np.random.RandomState(12)
+    x = rng.rand(2, H, H, 3).astype(np.float32)
+    mats = np.stack(CASES[sorted(CASES)[0]])
+    f = np.asarray(jax_setup_filter(WAVELETS["sym6"]))
+    tx, tm = torch.from_numpy(x), torch.from_numpy(mats)
+    first = P.geom_resample_twopass(tx, tm, f, 6)
+    assert len(built) == 2                       # one up, one down matrix
+    cached = dict(P._FIR_MATRICES)
+    second = P.geom_resample_twopass(tx, tm, f, 6)
+    assert len(built) == 2
+    assert len(P._FIR_MATRICES) == 2
+    assert all(P._FIR_MATRICES[k] is v for k, v in cached.items())
+    assert torch.equal(first, second)
+    # the uncached build, as the stage ran it before
+    npad = H + 12
+    u = torch.from_numpy(P._upsample_matrix(f, npad))
+    d = torch.from_numpy(P._downsample_matrix(f, 2 * npad, extra_pad=-12))
+    xp = torch.nn.functional.pad(tx.permute(0, 3, 1, 2), (6,) * 4,
+                                 mode="reflect")
+    xp = P._warp_core_planar(torch.matmul(u, torch.matmul(xp, u.t())), tm)
+    fresh = torch.matmul(d, torch.matmul(xp, d.t())).permute(0, 2, 3, 1)
+    assert torch.equal(first, fresh)
+    ref = J.geom_resample_twopass(jnp.asarray(x), jnp.asarray(mats),
+                                  jnp.asarray(f), 6, use_pallas=False)
+    np.testing.assert_allclose(first.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+    # another dtype is another upload of the same host matrices
+    n_built = len(built)
+    P.geom_resample_twopass(tx.to(torch.bfloat16), tm, f, 6)
+    assert len(built) == n_built and len(P._FIR_MATRICES) == 4
+
+
 def test_affine_warp_twopass_and_gather_vs_jax():
     rng = np.random.RandomState(9)
     x = rng.rand(2, H, H, 3).astype(np.float32)

@@ -224,3 +224,100 @@ def test_record_masks_and_skin(seed, jitter):
     no_arm.keypoints[[3, 6], 2] = 0.05          # elbows lost: empty palms
     _equal(pp.retain_mask_of(no_arm), jpp.retain_mask_of(_jax_record(no_arm)),
            "retain_mask_of[no elbows]")
+
+
+# ---------------------------------------------------------------------------
+# the host functions the training loaders brought along
+
+@pytest.mark.parametrize("seed,jitter", PAIRS)
+def test_draw_pose_and_load_keypoints(seed, jitter, tmp_path):
+    """The host stick-figure raster: the same cv2 lines and disks, and the
+    same in-place invalidation of knees and ankles near the border."""
+    import io
+    import json
+
+    kp = make_person(seed, jitter=jitter).keypoints
+    kp[:, 0] -= 96                       # back to the 512x320 original
+    kp[10, 1] = 470.0                    # an ankle near the border
+    kp[6, 2] = 0.01                      # a joint below the draw threshold
+    for kw in (dict(), dict(img_size=(512, 512), radius=3),
+               dict(draw_limbs=False)):
+        ka, kb = kp.copy(), kp.copy()
+        got, ref = pose.draw_pose(ka, **kw), jpose.draw_pose(kb, **kw)
+        _equal(got[0], ref[0], "draw_pose image")
+        _equal(ka, kb, "draw_pose mutated keypoints")
+        assert got[1] is ka and got[0].any()
+    doc = json.dumps({"people": [{"pose_keypoints_2d":
+                                  kp.reshape(-1).tolist()}]})
+    path = tmp_path / "k_keypoints.json"
+    path.write_text(doc)
+    for source in (lambda: str(path), lambda: io.StringIO(doc)):
+        _equal(pose.load_keypoints(source()), jpose.load_keypoints(source()),
+               "load_keypoints")
+    empty = json.dumps({"people": []})
+    _equal(pose.load_keypoints(io.StringIO(empty)),
+           jpose.load_keypoints(io.StringIO(empty)), "load_keypoints[none]")
+
+
+@pytest.mark.parametrize("center,radius,shape", [
+    ((10, 12), 5, (40, 40)), ((0, 0), 5, (40, 40)), ((39.5, 3.2), 4, (40, 20)),
+    ((100, 100), 5, (40, 40)), ((20, 20), 0.5, (40, 40))])
+def test_disk_coords(center, radius, shape):
+    _equal(pose._disk_coords(*center, radius, shape),
+           jpose._disk_coords(*center, radius, shape), "_disk_coords")
+
+
+@pytest.mark.parametrize("seed,jitter", PAIRS)
+def test_flip_keypoints_and_pose_params(seed, jitter):
+    assert pose.OPENPOSE_FLIP == jpose.OPENPOSE_FLIP
+    rec = make_person(seed, jitter=jitter)
+    kp = rec.keypoints.copy()
+    kp[4, 2] = 0.01                      # an invalid joint keeps its place
+    _equal(pose.flip_keypoints(kp, 512), jpose.flip_keypoints(kp, 512),
+           "flip_keypoints")
+    _equal(host.flip_pose_params(rec.pose_params, 512),
+           jcond.flip_pose_params(rec.pose_params, 512), "flip_pose_params")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_single_perspective_transform_and_crop_matrices(seed):
+    rng = np.random.RandomState(seed)
+    src = rng.rand(4, 2) * 100
+    dst = src + rng.rand(4, 2) * 20
+    _equal(geometry.get_perspective_transform(src, dst),
+           jgeometry.get_perspective_transform(src, dst),
+           "get_perspective_transform")
+    kp = make_person(seed, jitter=30.0).keypoints
+    kp[[9, 12], 2] = 0.0                 # fallback chains, a part lost
+    for part in range(10):
+        _equal(geometry.get_crop_matrices(kp, part, 128, 128, 512, 512),
+               jgeometry.get_crop_matrices(kp, part, 128, 128, 512, 512),
+               f"get_crop_matrices[{part}]")
+
+
+def test_pad_helpers():
+    rng = np.random.RandomState(3)
+    for h, w in ((512, 320), (512, 321), (64, 64)):
+        assert pp._pad_width(h, w) == jpp._pad_width(h, w)
+        left, right = pp._pad_width(h, w)
+        for arr in (rng.randint(0, 255, (h, w, 3)).astype(np.uint8),
+                    rng.randint(0, 20, (h, w, 1)).astype(np.uint8)):
+            _equal(pp._pad_lr(arr, left, right, 255),
+                   jpp._pad_lr(arr, left, right, 255), "_pad_lr")
+    assert (pp.RES, pp.PATCH) == (jpp.RES, jpp.PATCH)
+
+
+@pytest.mark.parametrize("k", [5, 8])
+def test_erode_and_warp_cv2_branches(k, monkeypatch):
+    """`_warp` and `_erode_mask_255` are the originals' cv2 branches (the
+    originals take them too unless PASTA_USE_NATIVE=1)."""
+    monkeypatch.setattr(jpp, "_USE_NATIVE", False)
+    rng = np.random.RandomState(k)
+    mask = (rng.rand(96, 96, 1) > 0.2).astype(np.uint8) * 255
+    _equal(pp._erode_mask_255(mask, k), jpp._erode_mask_255(mask, k),
+           "_erode_mask_255")
+    _equal(pp._erode_mask_255(mask[..., 0], k),
+           jpp._erode_mask_255(mask[..., 0], k), "_erode_mask_255[2d]")
+    img = rng.randint(0, 255, (96, 96, 3)).astype(np.uint8)
+    m = np.array([[1.1, 0.1, -4.0], [-0.05, 0.9, 3.0], [1e-4, 2e-4, 1.0]])
+    _equal(pp._warp(img, m, (48, 32)), jpp._warp(img, m, (48, 32)), "_warp")
