@@ -3,9 +3,11 @@
 Drives pasta_tpu_torch's main paths on the card -- 512px try-on serving
 (TryonPipeline.run_batch, fashion Generator config, num_bf16_res=3), the
 512px training step of the fashion preset (batch 4, G/D/DP phases, lazy R1,
-EMA, ADA) and a training run through the command line (dataset files on
-disk, both loaders, the loop, snapshots, an exact resume) -- with seeded
-random weights and seeded synthetic inputs, in phases:
+EMA, ADA), a training run through the command line (dataset files on
+disk, both loaders, the loop, snapshots, an exact resume) and the training
+options (grad_accum, Gpl, the contextual loss, the doubled parsing-D
+phase, freeze-D, the shared and the reused fakes) -- with seeded random
+weights and seeded synthetic inputs, in phases:
 
   1. device      -- fails without CUDA; prints the card's name, power limit
   2. build       -- compiles csrc/conv3x3.cu (K1) and csrc/shift.cu (K2, K3)
@@ -50,7 +52,29 @@ random weights and seeded synthetic inputs, in phases:
                     resume from its checkpoint for 3 more with the host
                     loader on the directory. Holds stats.jsonl, the grids,
                     the checkpoint, the resume bit-equal to what was saved,
-                    and K1 / K2 / K3 launches per step equal to phase 7's
+                    and K1 / K2 / K3 launches per step equal to phase 7's;
+                    then a run with --pl_weight 2 --contextual_weight 1
+                    --grad-accum 2 for 4 steps (Gpl and R1 at step 0): its
+                    launches, pl_penalty in stats.jsonl, pl_mean in the
+                    checkpoint
+ 10. train-options -- options A (grad_accum 2, Gpl, contextual loss,
+                    doubled parsing D, freeze-D 5) at 512 px, batch 4: a
+                    regular step and one with Gpl and both R1 phases; exact
+                    launches (K1's fp32 share too) and synthesis runs,
+                    pl_mean moved, the frozen D layers bit-equal with no
+                    Adam moments, every other D parameter moved; s/step,
+                    peak memory. Then B (strict_phase_noise=False) with and
+                    without reuse_g_fakes beside the default preset, timed
+                    in turns, with their launches, synthesis runs and peak
+                    memory, and the no-grad G draws B and reuse drop. The
+                    phase's launches are those of its steps alone
+ 11. options-kernels -- every shape K1, K2 and K3 took in phase 10 (G at a
+                    microbatch of 2, Gpl's style branch and its double
+                    backward, D per microbatch, ...) against plain
+ 12. options-check -- A, B and B with reuse at 512 px, narrow widths, fp32,
+                    batch 2: one whole step card against CPU; A's per-phase
+                    losses and gradients (Gpl's, the contextual term's) at
+                    64 px
 
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; the one
@@ -114,6 +138,51 @@ TRAIN_K2, TRAIN_K3 = 4, 2
 R1_K1_FWD, R1_K1_DX, R1_K2, R1_K3 = 4, 12, 4, 2
 TRAIN_BATCH = 4
 N_TRAIN_TIMED = 3
+
+# The training options (phase 10), each on the fashion preset at batch 4.
+# A: every option that changes the step's work but the shared fakes; B: the
+# shared no-grad forward of the D phases, with and without Gmain's own
+# fakes in its place; C: the options of the command-line run.
+OPTIONS = {
+    "A": dict(grad_accum=2, pl_weight=2.0, contextual_weight=1.0,
+              double_d_parsing=True, freeze_d_layers=5),
+    "B": dict(strict_phase_noise=False),
+    "B reuse": dict(strict_phase_noise=False, reuse_g_fakes=True),
+    "C": dict(grad_accum=2, pl_weight=2.0, contextual_weight=1.0),
+}
+# (K1 fwd, K1 dX, K2, K3, K1 fp32) of one step, by options and the lazy
+# phases it runs; tests/test_torch_train_options_parts.py counts the same
+# on the CPU at 32 px, where the same convs lie in K1's scope.
+#   grad_accum 2: two microbatches of 2, each with Gmain, Dmain and DPmain,
+#     the D calls apart (the mbstd group of 4 exceeds 2): 77 fwd, 45 dX,
+#     10 K2, 4 K3 each.
+#   Gpl: +3 fwd (the style branch on 2 samples), +9 dX (its first backward
+#     through those 3 convs, the second through the forward's and the
+#     first backward's), all fp32.
+#   contextual: +6 fwd (VGG19's 3 on finetune and on real), +3 dX, fp32.
+#   double_d_parsing: +1 DPmain (3 fwd of the style branch + the DP's).
+#   freeze_d_layers 5: Dmain's backward stops above b512 and b256.conv0,
+#     so Dmain's D dX go, and Dr1 loses 2 of its 12 dX.
+#   shared fakes: one full G forward (26) in place of Dmain's (26) and
+#     DPmain's style branch (3); with reuse neither runs.
+STEP_LAUNCHES = {
+    ("default", "regular"): (TRAIN_K1_FWD, TRAIN_K1_DX, TRAIN_K2, TRAIN_K3,
+                             TRAIN_K1_FP32),
+    ("default", "r1"): (TRAIN_K1_FWD + R1_K1_FWD, TRAIN_K1_DX + R1_K1_DX,
+                        TRAIN_K2 + R1_K2, TRAIN_K3 + R1_K3, TRAIN_K1_FP32),
+    ("A", "regular"): (180, 92, 20, 8, 204),
+    ("A", "pl"): (183, 101, 20, 8, 216),
+    ("A", "pl_r1"): (187, 111, 24, 10, 216),
+    ("B", "regular"): (66, 37, 4, 2, 87),
+    ("B reuse", "regular"): (40, 37, 4, 2, 61),
+    ("C", "regular"): (166, 96, 20, 8, 198),
+    ("C", "pl_r1"): (173, 117, 24, 10, 210),
+}
+# runs of G's synthesis network in one regular step (a hook counts them):
+# strict draws for Gmain, Dmain and DPmain (its style branch); A each per
+# microbatch, DPmain twice, one more for Gpl
+SYNTHESIS_RUNS = {"default": 3, "B": 2, "B reuse": 1, "A": 8}
+N_TURNS = 2        # steps of each of default, B, B reuse per turn
 
 
 def check(cond, msg):
@@ -813,6 +882,378 @@ def phase_train_check(shift):
               flush=True)
 
 
+def _launches(k1):
+    """(K1 fwd, K1 dX, K2, K3, K1 fp32) launched so far."""
+    from pasta_tpu_torch.cli import bench_train
+
+    return bench_train.kernel_counts() + (k1.conv3x3_valid.launches_fp32,)
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _one_step(k1, state, step, batch, gen, dev, **kw):
+    """One train step: its metrics (fetched), host seconds, launches and
+    the runs of G's synthesis network (counted by a forward hook)."""
+    from pasta_tpu_torch.train.steps import fetch_metrics
+
+    runs = []
+    hook = state.g.synthesis.register_forward_hook(lambda *_: runs.append(1))
+    _sync(dev)
+    before = _launches(k1)
+    t0 = time.perf_counter()
+    try:
+        _, metrics = step(state, batch, gen, **kw)
+        _sync(dev)
+    finally:
+        hook.remove()
+    host = time.perf_counter() - t0
+    counts = tuple(a - b for a, b in zip(_launches(k1), before))
+    metrics = fetch_metrics([metrics])[0]
+    for k, v in metrics.items():
+        check(np.isfinite(v), f"train metric {k} = {v}")
+    return dict(metrics=metrics, s=host, counts=counts, runs=len(runs))
+
+
+def _free(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _peak_gib(dev):
+    if torch.device(dev).type != "cuda":
+        return float("nan")
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+@contextlib.contextmanager
+def _path_shapes(k1, shift, shapes):
+    """Inside the block, records each distinct shape K1 and K2/K3 launch
+    at: K1's (x, w, dtype, out_w, pad) in shapes["K1"]; K2's and K3's
+    (name, rows, dtype, V, out_w) in shapes["K2/K3"] with the positions q
+    of its first launch. The launches and their counts are unchanged."""
+    conv, rows = k1._kernel, shift._kernel
+
+    def conv_seen(x, w, out_w, pad=0):
+        shapes["K1"].add((tuple(x.shape), tuple(w.shape), x.dtype, out_w,
+                          pad))
+        return conv(x, w, out_w, pad)
+
+    def rows_seen(name, a, q, start, f, v_dim, out_w, return_rows=False):
+        key = (name, tuple(a.shape), a.dtype, v_dim, out_w)
+        if q is not None and key not in shapes["K2/K3"]:
+            shapes["K2/K3"][key] = q.clone()
+        return rows(name, a, q, start, f, v_dim, out_w, return_rows)
+
+    k1._kernel, shift._kernel = conv_seen, rows_seen
+    try:
+        yield
+    finally:
+        k1._kernel, shift._kernel = conv, rows
+
+
+def phase_train_options(k1, shift, dev="cuda"):
+    """The training options on the fashion preset at batch 4. A: a warm-up,
+    a regular step, a step with Gpl and one with Gpl and both R1 phases;
+    the launches of each, G's synthesis runs, pl_mean moved, the frozen D
+    layers untouched (bit for bit, no Adam moments) and every other D
+    parameter moved; s/step and peak memory of each. B and B with reuse
+    beside the default preset, all three built first and timed in turns;
+    their launches, synthesis runs and peak memory. Returns the launches of
+    the phase's steps (K1 fwd, K1 dX, K2, K3, K1 fp32), counted from 0 and
+    held equal to the sum of STEP_LAUNCHES over them, and the shapes the
+    kernels took (`_path_shapes`)."""
+    shapes = {"K1": set(), "K2/K3": {}}
+    with _path_shapes(k1, shift, shapes):
+        counts = _options_steps(k1, dev)
+    return counts, shapes
+
+
+def _options_steps(k1, dev):
+    from pasta_tpu_torch.cli import bench_train
+    from pasta_tpu_torch.train.config import fashion_config
+    from pasta_tpu_torch.train.state import freeze_d_mask
+
+    bench_train.reset_kernel_counts()
+    cfg = fashion_config(batch_size=TRAIN_BATCH, **OPTIONS["A"])
+    state, step, batch, gen = bench_train.setup(cfg, dev)
+    trained = freeze_d_mask(cfg, state.d)
+    before = {m: {n: p.detach().clone() for n, p in
+                  getattr(state, m).named_parameters()}
+              for m in ("g", "d", "dp")}
+    t0 = time.perf_counter()
+    _one_step(k1, state, step, batch, gen, dev)
+    t_warm = time.perf_counter() - t0
+    steps = {}
+    for kind, kw in (("regular", {}), ("pl", dict(do_pl=True)),
+                     ("pl_r1", dict(do_pl=True, do_r1_d=True,
+                                    do_r1_dp=True))):
+        if torch.device(dev).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        steps[kind] = r = _one_step(k1, state, step, batch, gen, dev, **kw)
+        r["peak"] = _peak_gib(dev)
+        want = STEP_LAUNCHES["A", kind]
+        check(r["counts"] == want, f"A {kind} step: launches K1 fwd/dX, K2, "
+              f"K3, K1 fp32 {r['counts']} != {want}")
+        runs = SYNTHESIS_RUNS["A"] + (kind != "regular")
+        check(r["runs"] == runs, f"A {kind} step: {r['runs']} synthesis runs")
+    reg, pl = steps["regular"], steps["pl_r1"]
+    pl_mean = float(state.pl_mean)
+    check(np.isfinite(pl_mean) and pl_mean != 0, f"pl_mean {pl_mean}")
+    check(pl["metrics"]["pl_penalty"] > 0 and "pl_penalty" in reg["metrics"],
+          "pl_penalty")
+    frozen = 0
+    for m in ("g", "d", "dp"):
+        for name, p in getattr(state, m).named_parameters():
+            same = torch.equal(p.detach(), before[m][name])
+            if m == "d" and not trained[name]:
+                check(same and p not in state.d_opt.state,
+                      f"frozen D {name} moved or has Adam moments")
+                frozen += 1
+            else:
+                check(not same, f"{m} {name} did not move")
+    check(frozen == 9, f"{frozen} frozen D tensors, wanted 9")
+    print(f"[train-options] A {OPTIONS['A']} at batch {TRAIN_BATCH}: warm-up"
+          f" {t_warm:.2f} s | "
+          + " | ".join(f"{k} step {r['s']:.4f} s, peak {r['peak']:.2f} GiB, "
+                       f"launches K1 fwd/dX, K2, K3, K1 fp32 {r['counts']}, "
+                       f"{r['runs']} synthesis runs"
+                       for k, r in steps.items())
+          + f" | pl_mean {pl_mean:.6g}, pl_penalty "
+          f"{pl['metrics']['pl_penalty']:.4g} | {frozen} frozen D tensors "
+          f"bit-equal without moments; the other "
+          f"{sum(map(len, before.values())) - frozen} tensors of G, D and DP "
+          f"moved", flush=True)
+    del state, step, batch, gen, before
+    _free(dev)
+
+    built = {}
+    for name in ("default", "B", "B reuse"):
+        cfg = fashion_config(batch_size=TRAIN_BATCH, **OPTIONS.get(name, {}))
+        built[name] = bench_train.setup(cfg, dev)
+        _one_step(k1, *built[name], dev)               # warm-up
+    times = {name: [] for name in built}
+    peaks = dict.fromkeys(built, 0.0)
+    resident = (torch.cuda.memory_allocated() / 2 ** 30
+                if torch.device(dev).type == "cuda" else float("nan"))
+    for name in ("default", "B", "B reuse", "B reuse", "B", "default"):
+        if torch.device(dev).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for _ in range(N_TURNS):
+            r = _one_step(k1, *built[name], dev)
+            want = STEP_LAUNCHES[name, "regular"]
+            check(r["counts"] == want, f"{name}: launches {r['counts']} != "
+                  f"{want}")
+            check(r["runs"] == SYNTHESIS_RUNS[name],
+                  f"{name}: {r['runs']} synthesis runs")
+            times[name].append(r["s"])
+        peaks[name] = max(peaks[name], _peak_gib(dev))
+    # the steps' own launches, read before the draws timed below: A's
+    # warm-up and three steps, each of default, B, B reuse warmed up once
+    # and run 2 x N_TURNS times
+    counts = _launches(k1)
+    kinds = [("A", "regular"), ("A", "regular"), ("A", "pl"), ("A", "pl_r1")]
+    kinds += [(name, "regular") for name in built] * (1 + 2 * N_TURNS)
+    want = tuple(sum(STEP_LAUNCHES[k][i] for k in kinds) for i in range(5))
+    check(counts == want, f"options steps: launches {counts} != {want}")
+    # the median: a host hiccup slows one step in a call now and then
+    median = {k: float(np.median(v)) for k, v in times.items()}
+    if torch.device(dev).type == "cuda":
+        # what B and B reuse leave out: DPmain's draw of the style branch
+        # (encoders, mapping, style blocks) and Dmain's whole forward
+        from pasta_tpu_torch.train.steps import _run_g
+
+        state, _, batch, gen = built["default"]
+        z = torch.zeros((TRAIN_BATCH, 0), device=dev)
+        with torch.no_grad():
+            t_draw = cuda_ms(lambda: state.g.parsing(
+                z, batch["style_input"], batch["retain"], batch["pose"],
+                generator=gen), 5)
+            t_full = cuda_ms(lambda: _run_g(state.g, batch, gen,
+                                            update_w_avg=False), 5)
+        print(f"[train-options] no-grad G draws at batch {TRAIN_BATCH}, "
+              f"CUDA events: the style branch (DPmain's) {t_draw:.2f} ms, a "
+              f"whole forward (Dmain's, or the shared one) {t_full:.2f} ms",
+              flush=True)
+    print(f"[train-options] s/step in turns (default, B, B reuse, B reuse, "
+          f"B, default; {N_TURNS} steps each), host clock, median: "
+          + " | ".join(f"{k} {v:.4f} ({100 * (v / median['default'] - 1):+.1f}"
+                       f"%; peak {peaks[k]:.2f} GiB; {SYNTHESIS_RUNS[k]} "
+                       f"synthesis runs, launches "
+                       f"{STEP_LAUNCHES[k, 'regular']})"
+                       for k, v in median.items())
+          + f" | the three states resident: {resident:.2f} GiB | every "
+          f"step: {times} | launches of the phase's {len(kinds)} steps "
+          f"K1 fwd/dX, K2, K3, K1 fp32 {counts}", flush=True)
+    del built
+    _free(dev)
+    return counts
+
+
+def phase_options_kernels(k1, shift, shapes, dev="cuda"):
+    """Each shape K1, K2 and K3 took in the options steps, held against the
+    plain version at phase 6's budget: K1 (either dtype and pad) on random
+    inputs of that shape, K2/K3 on random rows with the path's own q.
+    Returns the largest error of each kernel."""
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    share = dict.fromkeys(worst, 0.0)
+    for xs, ws, dtype, out_w, pad in sorted(shapes["K1"], key=str):
+        x = torch.randn(xs, device=dev, generator=g).to(dtype)
+        w = (torch.randn(ws, device=dev, generator=g)
+             / (9 * xs[3]) ** 0.5).to(dtype)
+        got = k1._kernel(x, w, out_w, pad)
+        ref = k1.conv3x3_valid_plain(x.float(), w.float(), out_w, pad)
+        err = (got.float() - ref).abs().max().item()
+        bound = _bound(ref, dtype)
+        check(got.shape == ref.shape and err <= bound,
+              f"K1 {list(xs)}->{ws[3]} {dtype} out_w {out_w} pad {pad}: err "
+              f"{err} > bound {bound}")
+        worst["K1"] = max(worst["K1"], err)
+        share["K1"] = max(share["K1"], err / bound)
+        del x, w, got, ref
+    for (name, a_shape, dtype, v_dim, out_w), q in sorted(
+            shapes["K2/K3"].items(), key=lambda kv: str(kv[0])):
+        a = torch.randn(a_shape, device=dev, generator=g).to(dtype)
+        got = shift._kernel(name, a, q, None, None, v_dim, out_w)
+        ref = (shift.shift_fwd_plain(a, q, out_w) if name == "shift_fwd"
+               else shift.shift_bwd_plain(a, q, v_dim))
+        err = (got.float() - ref.float()).abs().max().item()
+        bound = _bound(ref, dtype)
+        check(err <= bound, f"{name} {list(a_shape)} {dtype}: err {err} > "
+              f"bound {bound}")
+        tag = "K2" if name == "shift_fwd" else "K3"
+        worst[tag] = max(worst[tag], err)
+        share[tag] = max(share[tag], err / bound)
+        del a, got, ref
+    _sync(dev)
+    k1_kinds = collections.Counter(
+        (str(d)[6:], p, xs[0]) for xs, _, d, _, p in shapes["K1"])
+    rows_n = sorted({(k[0][6:9], k[1][0]) for k in shapes["K2/K3"]})
+    print(f"[options-kernels] every shape the options steps launched, "
+          f"against plain: K1 {len(shapes['K1'])} shapes (dtype, pad, N: "
+          f"count {dict(sorted(k1_kinds.items()))}), K2/K3 "
+          f"{len(shapes['K2/K3'])} (kernel, R: {rows_n}) | max_abs_err "
+          f"{', '.join(f'{k} {v:.3g}' for k, v in worst.items())} | largest "
+          f"error / bound {', '.join(f'{k} {v:.3f}' for k, v in share.items())}",
+          flush=True)
+    _free(dev)
+    return worst
+
+
+def _options_step(cfg, dev, noise):
+    """One whole step with both R1 phases (and Gpl when cfg has it, on the
+    directions `noise`) from seed 0: (metrics, each module's parameters,
+    pl_mean, w_avg, K1 / K2 / K3 launches)."""
+    from pasta_tpu_torch.losses.vgg import VGG19Features
+    from pasta_tpu_torch.ops import affine_warp as shift
+    from pasta_tpu_torch.ops import conv3x3 as k1
+    from pasta_tpu_torch.train.state import batch_to, example_batch, init_state
+    from pasta_tpu_torch.train.steps import fetch_metrics, make_train_step
+
+    kw = dict(do_r1_d=True, do_r1_dp=True, do_pl=bool(cfg.pl_weight))
+    state = init_state(cfg, seed=0, device=dev)
+    vgg = VGG19Features(seed=3).to(dev).requires_grad_(False)
+    batch = batch_to(example_batch(cfg, np.random.RandomState(0)), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    before = (k1.conv3x3_valid.launches + k1.conv3x3_valid.launches_bwd,
+              shift.shift_fwd.launches, shift.shift_bwd.launches)
+    _, m = make_train_step(cfg, vgg)(state, batch, gen,
+                                     pl_noise=noise.to(dev), **kw)
+    after = (k1.conv3x3_valid.launches + k1.conv3x3_valid.launches_bwd,
+             shift.shift_fwd.launches, shift.shift_bwd.launches)
+    return (fetch_metrics([m])[0],
+            {k: {n: p.detach().cpu() for n, p in
+                 getattr(state, k).named_parameters()}
+             for k in ("g", "d", "dp")},
+            float(state.pl_mean), state.g.mapping.w_avg.cpu(),
+            tuple(x - y for x, y in zip(after, before)))
+
+
+def phase_options_check(dev="cuda"):
+    """A, B and B with reuse at 512 px and narrow widths (channel_base
+    2048: 4 channels at 512 px, K1's 64 and 128 at 32 and 16 px; fp32, no
+    noise, ADA p = 0, batch 2, so A's microbatches are single samples and
+    Gpl runs on one): one whole step with both R1 phases (and Gpl in A, on
+    the same directions) on the card against the same on the CPU, at the
+    CPU tests' whole-step budget (metrics 1e-2 relative or 2e-3 absolute,
+    each module's parameters 1e-4 of its norm). The VGG loss is off: A's
+    contextual loss runs VGG19 at its full width at 512 px all the same.
+    Then A's per-phase losses and gradients (Gpl's and the contextual
+    term's included) at 64 px, batch 4, at phase_train_check's budget
+    (1e-3, 2e-2)."""
+    from pasta_tpu_torch.losses.vgg import VGG19Features
+    from pasta_tpu_torch.train.config import smoke_config
+    from pasta_tpu_torch.train.state import batch_to, example_batch, init_state
+    from pasta_tpu_torch.train.steps import phase_losses
+
+    narrow = dict(resolution=512, batch_size=2, use_noise=False,
+                  vgg_weight=0.0, vgg_bf16=False)
+    noise = torch.from_numpy(np.random.RandomState(1).randn(
+        1, 512, 512, 3).astype(np.float32))
+    for name in ("A", "B", "B reuse"):
+        cfg = smoke_config(1, **narrow, **OPTIONS[name])
+        t0 = time.perf_counter()
+        mg, pg, lg, wg, launched = _options_step(cfg, dev, noise)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mc, pc, lc, wc, _ = _options_step(cfg, "cpu", noise)
+        t_cpu = time.perf_counter() - t0
+        if torch.device(dev).type == "cuda":
+            check(min(launched) > 0, f"{name} at 512 px: K1, K2, K3 launches "
+                  f"{launched} on the card")
+        for k, v in mc.items():
+            check(abs(mg[k] - v) <= max(2e-3, 1e-2 * abs(v)),
+                  f"{name} card vs CPU: {k} {mg[k]} vs {v}")
+        errs = {}
+        for k in pc:
+            num = sum((pg[k][n] - t).square().sum() for n, t in pc[k].items())
+            den = sum(t.square().sum() for t in pc[k].values())
+            errs[k] = (num / den).sqrt().item()
+            check(errs[k] <= 1e-4, f"{name} card vs CPU: {k} parameters "
+                  f"{errs[k]}")
+        errs["w_avg"] = ((wg - wc).norm() / wc.norm()).item()
+        check(errs["w_avg"] <= 1e-4 and abs(lg - lc) <= 1e-3 * max(abs(lc),
+                                                                   1e-12),
+              f"{name} card vs CPU: w_avg {errs['w_avg']}, pl_mean {lg} vs "
+              f"{lc}")
+        print(f"[options-check] narrow 512px fp32 {name}, batch 2, one step "
+              f"with R1{' and Gpl' if cfg.pl_weight else ''}, card vs CPU "
+              f"(K1, K2, K3 x{launched} on the card; {t_card:.1f} s, CPU "
+              f"{t_cpu:.1f} s): largest metric gap "
+              f"{max(abs(mg[k] - v) for k, v in mc.items()):.3g}, parameters "
+              f"relative {', '.join(f'{k} {v:.2g}' for k, v in errs.items())}",
+              flush=True)
+
+    cfg = smoke_config(1, batch_size=4, use_noise=False, vgg_weight=20.0,
+                       vgg_bf16=False, **OPTIONS["A"])
+    noise = torch.from_numpy(np.random.RandomState(1).randn(
+        2, 64, 64, 3).astype(np.float32))
+    phases = {}
+    for d in (dev, "cpu"):
+        state = init_state(cfg, seed=0, device=d)
+        vgg = VGG19Features(seed=3).to(d).requires_grad_(False)
+        batch = batch_to(example_batch(cfg, np.random.RandomState(0)), d)
+        gen = torch.Generator(device=d).manual_seed(0)
+        phases[d] = phase_losses(cfg, state, batch, gen, vgg,
+                                 pl_noise=noise.to(d))
+    worst = []
+    for phase in phases["cpu"]:
+        (lg, _, gg), (lc, _, gc) = phases[dev][phase], phases["cpu"][phase]
+        lerr = abs(lg.item() - lc.item()) / max(abs(lc.item()), 1e-6)
+        gnum = sum((a.cpu() - b).square().sum() for a, b in zip(gg, gc))
+        gden = sum(b.square().sum() for b in gc)
+        gerr = (gnum / gden.clamp_min(1e-30)).sqrt().item()
+        check(lerr <= 1e-3 and gerr <= 2e-2, f"options-check A {phase}: "
+              f"loss rel {lerr}, grad rel {gerr}")
+        worst.append(f"{phase} {lerr:.2g}/{gerr:.2g}")
+    print(f"[options-check] narrow 64px fp32 A, batch 4, per phase, card vs "
+          f"CPU, loss/grad relative: {', '.join(worst)}", flush=True)
+
+
 N_PERSONS = 24          # the synthetic dataset root of the training run
 RUN_STEPS, RESUME_STEPS, RUN_TICK = 6, 3, 3
 G_FWD_K1 = 26           # one generator forward (a snapshot's G-EMA draw)
@@ -1128,11 +1569,57 @@ def phase_train_run(k1, step_s):
               f"average, {1e3 * max(waits):.1f} ms at most | snapshot "
               f"{snaps[0]:.2f} s and {snaps[1]:.2f} s | peak {peak:.2f} GiB",
               flush=True)
+        options = _options_run(k1, cli_train, common, root)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         del steps
         torch.cuda.empty_cache()
-    return totals
+    return totals, options
+
+
+def _options_run(k1, cli_train, common, root):
+    """cli.train.main with Gpl, the contextual loss and two microbatches
+    (options C) for 4 steps on the directory root: Gpl and R1 at step 0.
+    Holds every step's launches (and the snapshot's G-EMA draw), the stats
+    rows' pl_penalty and the checkpoint's pl_mean."""
+    from pasta_tpu_torch.cli import bench_train
+
+    bench_train.reset_kernel_counts()
+    t0 = time.perf_counter()
+    run = cli_train.main(common + [
+        "--data", root, "--loader-impl", "host", "--pl_weight", "2",
+        "--contextual_weight", "1", "--grad-accum", "2", "--max-steps", "4",
+        "--tick", "2"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _launches(k1)
+    first, rest = STEP_LAUNCHES["C", "pl_r1"], STEP_LAUNCHES["C", "regular"]
+    snapshot = (G_FWD_K1, 0, 0, 0, G_FWD_K1)
+    want = tuple(a + 3 * b + c for a, b, c in zip(first, rest, snapshot))
+    check(counts == want, f"options run: launches {counts} != {want} (Gpl "
+          f"and R1 at step 0, 3 regular steps, the snapshot's G-EMA draw)")
+    with open(os.path.join(run, "stats.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    check([r["step"] for r in rows] == [2, 4], f"options run rows {rows}")
+    pen = [r["pl_penalty"] for r in rows]
+    check(all(p["num"] == 2 for p in pen) and pen[0]["mean"] > 0
+          and pen[1]["mean"] == 0, f"options run pl_penalty {pen}")
+    saved = torch.load(os.path.join(run, "ckpt-000004.pt"),
+                       map_location="cpu", weights_only=True)
+    check(np.isfinite(saved["pl_mean"]) and saved["pl_mean"] != 0,
+          f"options run checkpoint pl_mean {saved.get('pl_mean')}")
+    opts = json.load(open(os.path.join(run, "training_options.json")))
+    check(all(opts[k] == v for k, v in OPTIONS["C"].items()),
+          "options run: training_options.json")
+    loop_s = rows[1]["sec_per_kimg"] * TRAIN_BATCH / 1000
+    print(f"[train-run] options run {OPTIONS['C']} (cli: --pl_weight 2 "
+          f"--contextual_weight 1 --grad-accum 2), 4 steps in {seconds:.1f} s"
+          f" | launches K1 fwd/dX, K2, K3, K1 fp32 {counts} = Gpl + R1 step "
+          f"{first} + 3 x {rest} + the snapshot's draw | stats rows "
+          f"pl_penalty {[round(p['mean'], 6) for p in pen]} (Gpl at step 0 "
+          f"only) | checkpoint pl_mean {saved['pl_mean']:.6g} | s/step of "
+          f"steps 3-4 from stats.jsonl {loop_s:.4f}", flush=True)
+    return counts
 
 
 def main():
@@ -1147,22 +1634,26 @@ def main():
     train_rows = phase_kernel_train(k1, shift)
     counts, n_fp32, step_s = phase_train(k1)
     phase_train_check(shift)
-    run_counts = phase_train_run(k1, step_s)
+    run_counts, opt_run = phase_train_run(k1, step_s)
+    opt_counts, opt_shapes = phase_train_options(k1, shift)
+    opt_errs = phase_options_kernels(k1, shift, opt_shapes)
+    phase_options_check()
     k1_rows = rows + train_rows["K1"]
 
     def total(rs, key):
         return sum(r[key] for r in rs)
 
-    def entry(name, source, replaces, launched, rs, **extra):
-        """Sums over the shapes held against plain above; `bound_by` is the
-        side (operations or bytes) that makes up more of the summed bound."""
+    def entry(name, source, replaces, launched, rs, err, **extra):
+        """Sums over the shapes timed against plain above; `bound_by` is the
+        side (operations or bytes) that makes up more of the summed bound;
+        `err` the largest error at the options steps' shapes."""
         by = collections.Counter()
         for r in rs:
             by[r["bound_by"]] += r["bound_ms"]
         lib = [r["library_ms"] for r in rs]
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launched,
-                    max_abs_err=max(r["err"] for r in rs),
+                    max_abs_err=max([r["err"] for r in rs] + [err]),
                     ms=total(rs, "ms"), plain_ms=total(rs, "plain_ms"),
                     bound_ms=total(rs, "bound_ms"),
                     bound_by=by.most_common(1)[0][0],
@@ -1173,29 +1664,40 @@ def main():
     k1_total = counts[0] + counts[1]
     # launches: each main path driven with the counts at 0 just before it
     # and read just after (serving, the bare training steps, the training
-    # run through the command line), summed
+    # run through the command line and its run with the options, the
+    # options' steps), summed
     print(json.dumps({"kernels": [
         entry("conv3x3_valid", "pasta_tpu_torch/csrc/conv3x3.cu",
               "pasta_tpu/ops/pallas_conv.py:139",
-              launches + k1_total + run_counts[0] + run_counts[1],
-              k1_rows, launches_serving=launches, launches_train=counts[0],
+              launches + k1_total + sum(run_counts[:2]) + sum(opt_run[:2])
+              + sum(opt_counts[:2]),
+              k1_rows, opt_errs["K1"], launches_serving=launches, launches_train=counts[0],
               launches_dx=counts[1], launches_train_run=run_counts[0],
               launches_train_run_dx=run_counts[1],
               launches_train_fp32=n_fp32,
               launches_train_bf16=k1_total - n_fp32,
+              launches_options=opt_counts[0],
+              launches_options_dx=opt_counts[1],
+              launches_options_fp32=opt_counts[4],
+              launches_options_run=opt_run[0],
+              launches_options_run_dx=opt_run[1],
               ms_fp32=total(fp32, "ms"), ms_bf16=total(bf16, "ms"),
               bound_ms_fp32=total(fp32, "bound_ms"),
               bound_ms_bf16=total(bf16, "bound_ms"),
               library_ms_fp32=total(fp32, "library_ms"),
               library_ms_bf16=total(bf16, "library_ms")),
         entry("shift_fwd", "pasta_tpu_torch/csrc/shift.cu",
-              "pasta_tpu/ops/affine_warp.py:142", counts[2] + run_counts[2],
-              train_rows["K2"], launches_train=counts[2],
-              launches_train_run=run_counts[2]),
+              "pasta_tpu/ops/affine_warp.py:142",
+              counts[2] + run_counts[2] + opt_run[2] + opt_counts[2],
+              train_rows["K2"], opt_errs["K2"], launches_train=counts[2],
+              launches_train_run=run_counts[2], launches_options=opt_counts[2],
+              launches_options_run=opt_run[2]),
         entry("shift_bwd", "pasta_tpu_torch/csrc/shift.cu",
-              "pasta_tpu/ops/affine_warp.py:181", counts[3] + run_counts[3],
-              train_rows["K3"], launches_train=counts[3],
-              launches_train_run=run_counts[3]),
+              "pasta_tpu/ops/affine_warp.py:181",
+              counts[3] + run_counts[3] + opt_run[3] + opt_counts[3],
+              train_rows["K3"], opt_errs["K3"], launches_train=counts[3],
+              launches_train_run=run_counts[3], launches_options=opt_counts[3],
+              launches_options_run=opt_run[3]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,15 @@ without a card and without that flag the command refuses to run.
 (train.py:558-559). Without --vgg19 the perceptual loss runs on a seeded
 random VGG19, since no weights can be fetched.
 
+The training options follow the JAX CLI: --pl_weight (Gpl),
+--contextual_weight, --grad-accum, --strict-phase-noise and
+--reuse-g-fakes (true implies --strict-phase-noise false). The contextual
+loss runs on the same VGG19 as the perceptual loss.
+
 Flags of options the port has not got yet are accepted and raise
 NotImplementedError with the option's name when set off their default:
---devices / --gpus above 1, --pl_weight, --contextual_weight,
---grad-accum, --reuse-g-fakes, --strict-phase-noise, --metrics,
---tryon-grid, --trace. The JAX CLI's --step-mode, --remat*, --d-remat,
+--devices / --gpus above 1, --metrics, --tryon-grid, --trace. The JAX
+CLI's --step-mode, --remat*, --d-remat,
 --vgg-remat, --ada-impl, --coordinator, --num-processes and --process-id
 steer its TPU program and are not flags here.
 """
@@ -227,11 +231,11 @@ def main(argv=None):
                                 random_seed=args.seed)
     print(f"dataset: {len(dataset)} images from {args.data}")
     vgg = None
-    if cfg.vgg_weight > 0:
+    if cfg.vgg_weight > 0 or cfg.contextual_weight > 0:
         vgg = load_vgg_params(args.vgg19, seed=args.seed).to(args.device)
         if args.vgg19 is None:
-            print("WARNING: vgg_weight > 0 but no --vgg19 weights; the VGG "
-                  "loss runs on seeded random weights")
+            print("WARNING: no --vgg19 weights; the VGG and contextual "
+                  "losses run on seeded random weights")
     training_loop(cfg, dataset, run_dir, vgg=vgg, resume_path=args.resume,
                   total_steps=args.max_steps, tick_interval=args.tick,
                   num_workers=args.workers, snapshot_ticks=args.snap,

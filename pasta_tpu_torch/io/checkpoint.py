@@ -2,12 +2,13 @@
 
 `torch.save` of the four modules' state dicts (G, the image D, the parsing
 D, the G-EMA), the three Adam state dicts and the scalars (`step`,
-`cur_nimg`, `ada_p`), written to a temporary name and renamed into place,
-so that a reader never sees half a file (the JAX package's orbax directory
-is atomic too). `load_checkpoint` restores a `TrainState` in place, on
-whatever device its modules lie; a resumed run continues from exactly the
-saved parameters, EMA, moments and `ada_p`. `io/npz_ckpt.py` is the format
-that crosses to the JAX package.
+`cur_nimg`, `ada_p`, Gpl's `pl_mean`), written to a temporary name and
+renamed into place, so that a reader never sees half a file (the JAX
+package's orbax directory is atomic too). `load_checkpoint` restores a
+`TrainState` in place, on whatever device its modules lie; a resumed run
+continues from exactly the saved parameters, EMA, moments, `ada_p` and
+`pl_mean` (0 in a file written before Gpl was ported). `io/npz_ckpt.py`
+is the format that crosses to the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ def save_checkpoint(path, state):
     payload = {name: getattr(state, name).state_dict()
                for name in _MODULES + _OPTIMIZERS}
     payload.update(step=int(state.step), cur_nimg=int(state.cur_nimg),
-                   ada_p=float(state.ada_p))
+                   ada_p=float(state.ada_p), pl_mean=float(state.pl_mean))
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -43,4 +44,7 @@ def load_checkpoint(path, state):
     state.cur_nimg = int(payload["cur_nimg"])
     state.ada_p = torch.tensor(payload["ada_p"], dtype=torch.float32,
                                device=state.ada_p.device)
+    state.pl_mean = torch.tensor(payload.get("pl_mean", 0.0),
+                                 dtype=torch.float32,
+                                 device=state.pl_mean.device)
     return state

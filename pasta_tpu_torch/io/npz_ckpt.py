@@ -14,10 +14,17 @@ port's state, in place.
 Parameters and buffers cross by `io/from_jax.py`'s rules. Adam: optax keeps
 one `count` for the optimizer and the moments `mu`, `nu` as trees shaped
 like the parameters; torch keeps `step`, `exp_avg`, `exp_avg_sq` for each
-parameter. Every parameter of a module takes part in each of its updates
-(an unused one with a zero gradient), so the steps are equal and one count
-stands for them. `pl_mean` (the path-length average of an option the port
-has not got yet) is written as 0 and ignored on load.
+parameter. Every parameter that a module's Adam holds takes part in each of
+its updates (an unused one with a zero gradient), so the steps are equal
+and one count stands for them.
+
+Freeze-D: the JAX package wraps the image D's Adam in optax's
+`multi_transform` ({"train": adam, "freeze": set_to_zero}), whose state
+flattens to `.d_opt||.inner_states||train||.inner_state||[0]||.count`,
+`...||.mu||<path>` and `...||.nu||<path>` for the trained parameters alone
+(the frozen ones are masked out and `set_to_zero` keeps nothing). The
+port's Adam leaves the frozen parameters out, so it writes and reads that
+layout whenever it holds fewer parameters than its module has.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..train.state import trained_named_params
 from .from_jax import (NPZ_SEP, discriminator_jax_to_state_dict,
                        discriminator_state_dict_to_jax, jax_to_state_dict,
                        state_dict_to_jax)
@@ -32,6 +40,8 @@ from .from_jax import (NPZ_SEP, discriminator_jax_to_state_dict,
 # TrainState field -> (optimizer field, the module is a discriminator)
 _MODULES = {"g": ("g_opt", False), "d": ("d_opt", True),
             "dp": ("dp_opt", True)}
+# where optax's multi_transform keeps the Adam state of the trained part
+_MASKED = (".inner_states", "train", ".inner_state")
 
 
 def _flatten(prefix, tree, out):
@@ -57,11 +67,23 @@ def _subtree(flat, prefix):
     return tree
 
 
+def _held(opt, module):
+    """`trained_named_params(opt, module)`, and whether that is fewer than
+    all (freeze-D)."""
+    held = trained_named_params(opt, module)
+    return held, len(held) < len(list(module.parameters()))
+
+
+def _adam_lead(opt_field, masked):
+    return NPZ_SEP.join((f".{opt_field}",) + (_MASKED if masked else ())
+                        + ("[0]",))
+
+
 def _adam_to_optax(opt, module):
-    """(count, {name: exp_avg}, {name: exp_avg_sq}) of a torch Adam over
-    `module`'s parameters; zeros before its first step."""
+    """(count, {name: exp_avg}, {name: exp_avg_sq}) of a torch Adam over the
+    parameters of `module` it holds; zeros before its first step."""
     counts, mu, nu = set(), {}, {}
-    for name, p in module.named_parameters():
+    for name, p in _held(opt, module)[0]:
         st = opt.state.get(p, {})
         if st:
             counts.add(int(st["step"]))
@@ -79,17 +101,17 @@ def save_npz_state(path, state):
     flat = {".step": np.asarray(state.step, np.int32),
             ".cur_nimg": np.asarray(state.cur_nimg, np.int32),
             ".ada_p": np.asarray(float(state.ada_p), np.float32),
-            ".pl_mean": np.zeros((), np.float32)}
+            ".pl_mean": np.asarray(float(state.pl_mean), np.float32)}
     for field, (opt_field, disc) in _MODULES.items():
         to_jax = discriminator_state_dict_to_jax if disc else state_dict_to_jax
-        variables = to_jax(getattr(state, field).state_dict())
+        module, opt = getattr(state, field), getattr(state, opt_field)
+        variables = to_jax(module.state_dict())
         _flatten((f".{field}_params",), variables["params"], flat)
-        count, mu, nu = _adam_to_optax(getattr(state, opt_field),
-                                       getattr(state, field))
-        flat[NPZ_SEP.join((f".{opt_field}", "[0]", ".count"))] = np.asarray(
-            count, np.int32)
-        _flatten((f".{opt_field}", "[0]", ".mu"), to_jax(mu)["params"], flat)
-        _flatten((f".{opt_field}", "[0]", ".nu"), to_jax(nu)["params"], flat)
+        count, mu, nu = _adam_to_optax(opt, module)
+        lead = _adam_lead(opt_field, _held(opt, module)[1])
+        flat[lead + NPZ_SEP + ".count"] = np.asarray(count, np.int32)
+        _flatten((lead, ".mu"), to_jax(mu)["params"], flat)
+        _flatten((lead, ".nu"), to_jax(nu)["params"], flat)
     _flatten((".g_buffers",),
              state_dict_to_jax(state.g.state_dict())["buffers"], flat)
     ema = state_dict_to_jax(state.g_ema.state_dict())
@@ -112,12 +134,19 @@ def load_npz_state(path, state):
             variables["buffers"] = _subtree(flat, ".g_buffers")
         module.load_state_dict(to_sd(variables), strict=True)
         opt = getattr(state, opt_field)
-        lead = NPZ_SEP.join((f".{opt_field}", "[0]"))
+        held, masked = _held(opt, module)
+        lead = _adam_lead(opt_field, masked)
         count = float(flat[lead + NPZ_SEP + ".count"])
+        # (with freeze-D the trees lack the top layers: the discriminator's
+        # conversion needs only the epilogue, which is never frozen)
         mu = to_sd({"params": _subtree(flat, lead + NPZ_SEP + ".mu")})
         nu = to_sd({"params": _subtree(flat, lead + NPZ_SEP + ".nu")})
+        if set(mu) != {name for name, _ in held}:
+            raise ValueError(f"{opt_field}: the file's Adam moments are not "
+                             "those of the parameters this state trains "
+                             "(freeze_d_layers differs?)")
         opt.state.clear()
-        for name, p in module.named_parameters():
+        for name, p in held:
             opt.state[p] = dict(
                 step=torch.tensor(count, dtype=torch.float32),
                 exp_avg=mu[name].to(p.device, p.dtype),
@@ -129,4 +158,7 @@ def load_npz_state(path, state):
     state.cur_nimg = int(flat[".cur_nimg"])
     state.ada_p = torch.tensor(float(flat[".ada_p"]), dtype=torch.float32,
                                device=state.ada_p.device)
+    state.pl_mean = torch.tensor(float(flat[".pl_mean"]), dtype=torch.float32,
+                                 device=state.pl_mean.device)
     return state
+

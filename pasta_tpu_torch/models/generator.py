@@ -103,10 +103,11 @@ class SynthesisNetwork(nn.Module):
     def forward(self, ws, pose_feat, cat_feat, denorm_upper_input,
                 denorm_lower_input, denorm_upper_mask, denorm_lower_mask,
                 gt_parsing=None, noise_mode="random", generator=None,
-                parsing_only=False):
+                style_only=False):
         """Returns (coarse img, finetune img, pred_parsing); with
-        parsing_only=True only the style branch runs and the result is
-        pred_parsing (what the parsing discriminator's phase uses)."""
+        style_only=True only the style branch runs and the result is
+        (coarse img, pred_parsing): what the parsing discriminator's phase
+        and the path-length regularizer use."""
         resolutions = self.resolutions
         ws = ws.float()
         cat_cast = {res: cat_feat[str(res)].to(self._blk_dtype(res))
@@ -130,8 +131,8 @@ class SynthesisNetwork(nn.Module):
             if res == resolutions[-2]:
                 x_256, img_256 = x, img
             w_idx += n_conv
-        if parsing_only:
-            return pred_parsing
+        if style_only:
+            return img, pred_parsing
 
         # Parsing-index map drives the SPADE texture branch.
         if gt_parsing is not None:
@@ -217,20 +218,36 @@ class Generator(nn.Module):
                                            retain.to(self.enc_dtype))
         return stylecode.float()
 
-    def parsing(self, z, c, retain, pose, noise_mode="random",
-                generator=None):
-        """(pred_parsing, style code): the style branch of `forward`
-        without the SPADE texture branch, which the parsing logits do not
-        depend on."""
-        pose_feat = self.const_encoding(pose.to(self.enc_dtype))
+    def style_and_ws(self, z, c, retain, truncation_psi=1.0,
+                     truncation_cutoff=None, update_w_avg=False):
+        """The encoder and mapping half of `forward`: (style code, the
+        retain pyramid, ws)."""
         stylecode, feats = self.style_encoding(c.to(self.enc_dtype),
                                                retain.to(self.enc_dtype))
         stylecode = stylecode.float()
-        ws = self.mapping(z, stylecode)
+        ws = self.mapping(z, stylecode, truncation_psi=truncation_psi,
+                          truncation_cutoff=truncation_cutoff,
+                          update_w_avg=update_w_avg)
+        return stylecode, feats, ws
+
+    def style_branch(self, ws, feats, pose, noise_mode="random",
+                     generator=None):
+        """(coarse img, pred_parsing) of the style branch from given ws and
+        retain pyramid `feats`, without the SPADE texture branch, which
+        neither depends on; the path-length regularizer differentiates the
+        coarse image with respect to ws."""
+        pose_feat = self.const_encoding(pose.to(self.enc_dtype))
         cat_feats = {str(f.shape[1]): f for f in feats}
-        pred_parsing = self.synthesis(
-            ws, pose_feat, cat_feats, None, None, None, None,
-            noise_mode=noise_mode, generator=generator, parsing_only=True)
+        return self.synthesis(ws, pose_feat, cat_feats, None, None, None,
+                              None, noise_mode=noise_mode,
+                              generator=generator, style_only=True)
+
+    def parsing(self, z, c, retain, pose, noise_mode="random",
+                generator=None):
+        """(pred_parsing, style code): the style branch of `forward`."""
+        stylecode, feats, ws = self.style_and_ws(z, c, retain)
+        _, pred_parsing = self.style_branch(ws, feats, pose, noise_mode,
+                                            generator)
         return pred_parsing, stylecode
 
     def forward(self, z, c, retain, pose, denorm_upper_input,
@@ -255,12 +272,9 @@ class Generator(nn.Module):
                 raise ValueError(f"{name}: shape {tuple(t.shape)}, "
                                  f"expected {shape}")
         pose_feat = self.const_encoding(pose.to(self.enc_dtype))
-        stylecode, feats = self.style_encoding(c.to(self.enc_dtype),
-                                               retain.to(self.enc_dtype))
-        stylecode = stylecode.float()
-        ws = self.mapping(z, stylecode, truncation_psi=truncation_psi,
-                          truncation_cutoff=truncation_cutoff,
-                          update_w_avg=update_w_avg)
+        stylecode, feats, ws = self.style_and_ws(
+            z, c, retain, truncation_psi=truncation_psi,
+            truncation_cutoff=truncation_cutoff, update_w_avg=update_w_avg)
         cat_feats = {str(f.shape[1]): f for f in feats}
         img, finetune, pred_parsing = self.synthesis(
             ws, pose_feat, cat_feats, denorm_upper_input, denorm_lower_input,

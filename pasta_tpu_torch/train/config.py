@@ -8,15 +8,20 @@ from train.sh: l1 10, vgg 20, mask 30.
 Not ported, because they are memory or compilation workarounds of the TPU
 program: `step_mode`, `bwd_chunk`, `donate`, `remat`, `remat_min_res`,
 `spade_inner_remat`, `d_remat`, `vgg_remat`. `ada_impl` has one value in
-the port (the two-pass warp with K2/K3) and is not a field. The options
-of the next slice -- `grad_accum`, `reuse_g_fakes`, `pl_weight` (Gpl),
-`double_d_parsing`, `freeze_d_layers`, `contextual_weight`,
-`strict_phase_noise=False` and more than one GPU (`data_axis_size`) --
-raise if set to anything but their default. The path-length regularizer's
-`g_reg_interval`, `pl_batch_shrink` and `pl_decay` come with Gpl,
-`metric_items` with the in-training evaluator; `ada_interval` is unused in
-the JAX package too, and `style_mixing_prob` is a field there with no
-effect.
+the port (the two-pass warp with K2/K3) and is not a field.
+
+The training options of the JAX package are all here: gradient
+accumulation (`grad_accum`), the shared no-grad forward of the D phases
+(`strict_phase_noise=False`) and Gmain's own fakes in its place
+(`reuse_g_fakes`, which takes effect only with `strict_phase_noise=False`
+and `grad_accum == 1`, as in the JAX step), the path-length regularizer
+(`pl_weight` with `g_reg_interval`, `pl_batch_shrink`, `pl_decay`), the
+reference's doubled parsing-D phase (`double_d_parsing`), freeze-D
+(`freeze_d_layers`) and the contextual loss (`contextual_weight`). More
+than one GPU (`data_axis_size`) raises if set to anything but 1.
+`metric_items` comes with the in-training evaluator; `ada_interval` is
+unused in the JAX package too, and `style_mixing_prob` is a field there
+with no effect.
 """
 
 from __future__ import annotations
@@ -25,10 +30,7 @@ import dataclasses
 from typing import Optional
 
 # option -> the only value the port takes yet
-_DEFERRED = dict(grad_accum=1, reuse_g_fakes=False, pl_weight=0.0,
-                 double_d_parsing=False, freeze_d_layers=0,
-                 contextual_weight=0.0, strict_phase_noise=True,
-                 data_axis_size=1)
+_DEFERRED = dict(data_axis_size=1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,8 +53,11 @@ class TrainConfig:
     # Lazy R1 on batch // r1_batch_shrink samples (an unbiased estimate of
     # the same penalty).
     r1_batch_shrink: int = 1
-    # Every D / parsing-D phase takes a fresh no-grad generator draw.
+    # Every D / parsing-D phase takes a fresh no-grad generator draw; False:
+    # one no-grad forward of the updated G feeds them all.
     strict_phase_noise: bool = True
+    # D and parsing D take Gmain's own detached fakes (no extra forward);
+    # only with strict_phase_noise=False and grad_accum == 1.
     reuse_g_fakes: bool = False
     mbstd_group_size: int = 4
     lr: float = 5e-4
@@ -67,10 +72,19 @@ class TrainConfig:
     vgg_weight: float = 20.0
     mask_weight: float = 30.0
     pl_weight: float = 0.0
+    # Gpl runs on batch // pl_batch_shrink samples every g_reg_interval
+    # steps; pl_mean is an average of path lengths with this decay.
+    pl_batch_shrink: int = 2
+    pl_decay: float = 0.01
     contextual_weight: float = 0.0
     sanitize_grads: bool = True     # nan_to_num on grads
     d_reg_interval: int = 16
+    g_reg_interval: int = 4
+    # The reference registers the parsing-D phases twice: two DPmain
+    # updates a step, each on its own draw.
     double_d_parsing: bool = False
+    # Freeze the image D's first N layers (fromrgb, conv0, conv1, skip from
+    # the top resolution down).
     freeze_d_layers: int = 0
 
     # EMA

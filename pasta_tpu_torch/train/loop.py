@@ -8,8 +8,9 @@ assembly of the step's inputs on the device -> one train step (all phases)
 Nothing in the loop waits for the card between ticks: the step's metrics
 stay on the device and are fetched in one transfer a tick, the uploads go
 through pinned memory without blocking, and the lazy-R1 cadence is decided
-from the step number on the host. The checkpoint carries the optimizer
-state, the EMA, ADA's p and the step, so a resume is exact
+from the step number on the host, and so is Gpl's. The checkpoint carries
+the optimizer state, the EMA, ADA's p, Gpl's pl_mean and the step, so a
+resume is exact
 (`io/checkpoint.py`; a flat .npz of either package resumes too,
 `io/npz_ckpt.py`).
 
@@ -103,6 +104,15 @@ class ParallelLoader:
                 f.cancel()
         self._pending = []
         self.pool.shutdown(wait=True)
+
+
+def lazy_phases(cfg, step):
+    """(do_r1_d, do_pl) of `step`: the lazy R1 phases every d_reg_interval
+    steps, Gpl every g_reg_interval steps (pasta_tpu/train/loop.py), each
+    only where its weight is not 0. Decided on the host, from the step
+    number alone."""
+    return (cfg.r1_gamma != 0 and step % cfg.d_reg_interval == 0,
+            cfg.pl_weight != 0 and step % cfg.g_reg_interval == 0)
 
 
 def upload_batch(batch_np, device):
@@ -247,9 +257,10 @@ def _training_loop_impl(
             # upload and assembly above, during which it has none.
             if step + 1 < total_steps:
                 loaded = next(batches)
-            do_r1_d = cfg.r1_gamma != 0 and step % cfg.d_reg_interval == 0
+            do_r1_d, do_pl = lazy_phases(cfg, step)
             state, metrics = train_step(state, batch, generator,
-                                        do_r1_d=do_r1_d, do_r1_dp=do_r1_d)
+                                        do_r1_d=do_r1_d, do_r1_dp=do_r1_d,
+                                        do_pl=do_pl)
             step_metrics.append(metrics)
 
             if (step + 1) % tick_interval == 0 or step == total_steps - 1:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..losses.contextual import contextual_loss
 from ..losses.gan import d_logistic_loss, g_nonsat_loss, r1_penalty
 from ..losses.parsing import weighted_parsing_ce
 from ..losses.vgg import FEATURE_WEIGHTS, vgg_features
@@ -71,6 +72,7 @@ def build_loss_cores(cfg, d, dp, vgg=None):
         return li, lf
 
     use_vgg = cfg.vgg_weight > 0 and vgg is not None
+    use_contextual = cfg.contextual_weight > 0 and vgg is not None
 
     def _can_batch_d(n):
         gs = cfg.mbstd_group_size
@@ -119,8 +121,15 @@ def build_loss_cores(cfg, d, dp, vgg=None):
             loss_vgg = loss_vgg * cfg.vgg_weight
             loss_vgg_ft = loss_vgg_ft * cfg.vgg_weight
 
+        loss_ctx = 0.0
+        if use_contextual:
+            # fp32 VGG19 on the finetune image against the real one
+            loss_ctx = contextual_loss(vgg, finetune, batch["real_img"]
+                                       ) * cfg.contextual_weight
+
         loss = ((loss_gmain + loss_gmain_ft) / 2 + (loss_l1 + loss_l1_ft) / 2
-                + (loss_vgg + loss_vgg_ft) / 2 + loss_mask + loss_g_parsing)
+                + (loss_vgg + loss_vgg_ft) / 2 + loss_mask + loss_g_parsing
+                + loss_ctx)
         metrics = dict(
             g_loss=loss_gmain, g_loss_finetune=loss_gmain_ft,
             g_parsing=loss_g_parsing, g_l1=loss_l1 + loss_l1_ft,

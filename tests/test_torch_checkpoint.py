@@ -58,7 +58,7 @@ def _tensors(state):
         for pname, p in module.named_parameters():
             for k, v in opt.state[p].items():
                 out[f"{name}.{pname}.{k}"] = v
-    out["ada_p"] = state.ada_p
+    out.update(ada_p=state.ada_p, pl_mean=state.pl_mean)
     return out
 
 
@@ -116,7 +116,7 @@ def test_pt_load_is_strict(stepped, tmp_path):
     payload = torch.load(path, weights_only=True)
     assert sorted(payload) == sorted(
         ["g", "d", "dp", "g_ema", "g_opt", "d_opt", "dp_opt", "step",
-         "cur_nimg", "ada_p"])
+         "cur_nimg", "ada_p", "pl_mean"])
     del payload["g"]["mapping.w_avg"]
     torch.save(payload, path)
     with pytest.raises(RuntimeError, match="w_avg"):
@@ -188,9 +188,6 @@ def test_npz_crosses_both_ways_with_every_leaf(crossed):
     a, b = np.load(crossed["path"]), np.load(crossed["back"])
     assert sorted(a.files) == sorted(b.files)
     for k in a.files:
-        if k == ".pl_mean":        # written as 0 until Gpl is ported
-            assert float(b[k]) == 0.0
-            continue
         assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
         assert np.array_equal(a[k], b[k]), k
     template = jax.tree.map(np.asarray, crossed["jst"])

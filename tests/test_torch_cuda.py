@@ -434,3 +434,44 @@ def test_k1_bf16_double_backward(cuda):
         # their products: 2^-5 of the scale
         assert ((g.float() - r).abs().max().item()
                 <= 2.0 ** -5 * r.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_training_options_a_step_matches_cpu(cuda):
+    """One step of the training options A (grad_accum 2, Gpl, the
+    contextual loss, the doubled parsing-D phase, freeze-D) with Gpl and
+    both R1 phases, at the narrow 64 px config (fp32, no noise, ADA p = 0),
+    on the card against the CPU on the same directions: metrics 1e-2
+    relative or 2e-3 absolute, each module's parameters 1e-4 of its norm
+    (the CPU parity tests' whole-step budget)."""
+    from pasta_tpu_torch.losses.vgg import VGG19Features
+    from pasta_tpu_torch.train.config import smoke_config
+    from pasta_tpu_torch.train.state import batch_to, example_batch, init_state
+    from pasta_tpu_torch.train.steps import fetch_metrics, make_train_step
+
+    cfg = smoke_config(1, batch_size=4, use_noise=False, vgg_weight=20.0,
+                       vgg_bf16=False, grad_accum=2, pl_weight=2.0,
+                       contextual_weight=1.0, double_d_parsing=True,
+                       freeze_d_layers=5)
+    noise = torch.from_numpy(np.random.RandomState(1).randn(
+        2, 64, 64, 3).astype(np.float32))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        state = init_state(cfg, seed=0, device=dev)
+        vgg = VGG19Features(seed=3).to(dev).requires_grad_(False)
+        batch = batch_to(example_batch(cfg, np.random.RandomState(0)), dev)
+        _, m = make_train_step(cfg, vgg)(
+            state, batch, torch.Generator(device=dev).manual_seed(0),
+            do_r1_d=True, do_r1_dp=True, do_pl=True, pl_noise=noise.to(dev))
+        out[dev.type] = (fetch_metrics([m])[0], {
+            k: {n: p.detach().cpu() for n, p in
+                getattr(state, k).named_parameters()}
+            for k in ("g", "d", "dp")}, float(state.pl_mean))
+    (mg, pg, lg), (mc, pc, lc) = out["cuda"], out["cpu"]
+    for k, v in mc.items():
+        assert abs(mg[k] - v) <= max(2e-3, 1e-2 * abs(v)), k
+    for k in pc:
+        num = sum((pg[k][n] - t).square().sum() for n, t in pc[k].items())
+        den = sum(t.square().sum() for t in pc[k].values())
+        assert (num / den).sqrt().item() <= 1e-4, k
+    assert lc != 0 and abs(lg - lc) <= 1e-3 * abs(lc)

@@ -242,16 +242,24 @@ def test_update_rule_on_identical_grads(setup):
                 rtol=0, atol=1e-7)
 
 
+@pytest.mark.parametrize("option,value", [("data_axis_size", 2)])
+def test_options_of_later_slices_raise(option, value):
+    """Options the port does not run yet refuse any value but the one it
+    runs (one GPU)."""
+    with pytest.raises(NotImplementedError, match=option):
+        pconfig.fashion_config(**{option: value})
+
+
 @pytest.mark.parametrize("option,value", [
     ("grad_accum", 2), ("reuse_g_fakes", True), ("pl_weight", 2.0),
     ("double_d_parsing", True), ("freeze_d_layers", 1),
-    ("contextual_weight", 1.0), ("strict_phase_noise", False),
-    ("data_axis_size", 2)])
-def test_options_of_later_slices_raise(option, value):
-    """Options the port does not run yet refuse any value but the one it
-    runs (one GPU; otherwise the JAX config's default)."""
-    with pytest.raises(NotImplementedError, match=option):
-        pconfig.fashion_config(**{option: value})
+    ("contextual_weight", 1.0), ("strict_phase_noise", False)])
+def test_ported_options_are_accepted(option, value):
+    """The training options are accepted, and the config carries them
+    (tests/test_torch_train_options*.py hold each against the JAX step)."""
+    cfg = pconfig.fashion_config(**{option: value})
+    assert getattr(cfg, option) == value
+    assert getattr(pconfig.fashion_config(), option) != value
 
 
 @pytest.fixture(scope="module")
