@@ -6,8 +6,9 @@ Drives pasta_tpu_torch's main paths on the card -- 512px try-on serving
 EMA, ADA), a training run through the command line (dataset files on
 disk, both loaders, the loop, snapshots, an exact resume) and the training
 options (grad_accum, Gpl, the contextual loss, the doubled parsing-D
-phase, freeze-D, the shared and the reused fakes) -- with seeded random
-weights and seeded synthetic inputs, in phases:
+phase, freeze-D, the shared and the reused fakes) and data-parallel
+training over ranks -- with seeded random weights and seeded synthetic
+inputs, in phases:
 
   1. device      -- fails without CUDA; prints the card's name, power limit
   2. build       -- compiles csrc/conv3x3.cu (K1) and csrc/shift.cu (K2, K3)
@@ -75,6 +76,22 @@ weights and seeded synthetic inputs, in phases:
                     batch 2: one whole step card against CPU; A's per-phase
                     losses and gradients (Gpl's, the contextual term's) at
                     64 px
+ 13. dist        -- data parallelism (train/entry.py, train/dist.py), each
+                    part in processes of its own: (i) the narrow fp32 step
+                    (phase 8's config, batch 4, both R1 phases) in an NCCL
+                    group of one rank, bit-equal to the same step without a
+                    group (run twice, deterministic cuDNN, to show that it
+                    reproduces); (ii) two gloo ranks on CUDA tensors on the
+                    one card, 2 rows each, against (i)'s step at the
+                    global batch (phase 12's whole-step budget), the ranks
+                    bit-equal, each rank's K1 / K2 / K3 launches equal to
+                    one process's; (iii) with two cards or more, min(4,
+                    cards) NCCL ranks at the fashion preset, batch 4 a
+                    card (cli/bench_train.py --devices): a warm-up, 3
+                    regular steps and an R1 step, s/step, sec/kimg of the
+                    global batch, each phase's all-reduce ms, peak GiB and
+                    launches per rank (one card's, exactly); on one card a
+                    line says that (iii) needs more
 
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; the one
@@ -1622,6 +1639,218 @@ def _options_run(k1, cli_train, common, root):
     return counts
 
 
+def _narrow_dist_config(world):
+    """The narrow fp32 config of phase 8 (64 px, no noise, ADA p = 0, VGG
+    19 in fp32), global batch 4 over `world` ranks."""
+    from pasta_tpu_torch.train.config import smoke_config
+
+    return smoke_config(world, batch_size=4, use_noise=False,
+                        vgg_weight=20.0, vgg_bf16=False)
+
+
+def _narrow_dist_step(cfg, dev):
+    """One step with both R1 phases from seed 0 on this rank's rows (the
+    whole batch without a process group), its launches counted from 0 just
+    before it: (metrics, each module's parameters flat, w_avg, ada_p,
+    K1 fwd / K1 dX / K2 / K3 launches)."""
+    from pasta_tpu_torch.cli import bench_train
+    from pasta_tpu_torch.losses.vgg import VGG19Features
+    from pasta_tpu_torch.train.dist import rank, world_size
+    from pasta_tpu_torch.train.entry import replicate, shard_batch
+    from pasta_tpu_torch.train.state import batch_to, example_batch, init_state
+    from pasta_tpu_torch.train.steps import fetch_metrics, make_train_step
+
+    state = replicate(init_state(cfg, seed=0, device=dev))
+    vgg = VGG19Features(seed=3).to(dev).requires_grad_(False)
+    batch = batch_to(shard_batch(example_batch(cfg, np.random.RandomState(0)),
+                                 rank(), world_size()), dev)
+    gen = torch.Generator(device=dev).manual_seed(rank())
+    step = make_train_step(cfg, vgg)
+    _sync(dev)
+    bench_train.reset_kernel_counts()
+    _, m = step(state, batch, gen, do_r1_d=True, do_r1_dp=True)
+    _sync(dev)
+    counts = bench_train.kernel_counts()
+    return dict(metrics=fetch_metrics([m])[0],
+                params={k: _flat_params(getattr(state, k)).cpu()
+                        for k in ("g", "d", "dp", "g_ema")},
+                w_avg=state.g.mapping.w_avg.cpu(), ada_p=float(state.ada_p),
+                counts=counts)
+
+
+def _dist_group_of_one(rank, world, init_method, out, dev):
+    """(i), in a process of its own: the step twice without a process group
+    and once in a group of one rank (NCCL on the card), deterministic
+    cuDNN and torch ops throughout."""
+    import torch.distributed as dist
+
+    from pasta_tpu_torch.train.entry import init_distributed
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = _narrow_dist_config(1)
+    plain = [_narrow_dist_step(cfg, dev) for _ in range(2)]
+    dev = init_distributed(rank, world, init_method, dev)
+    try:
+        grouped = _narrow_dist_step(cfg, dev)
+        grouped["backend"] = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    torch.save(dict(plain=plain, grouped=grouped), out)
+
+
+def _dist_gloo_rank(rank, world, init_method, out, dev):
+    """(ii): one of `world` gloo ranks, on CUDA tensors all on card 0."""
+    import torch.distributed as dist
+
+    from pasta_tpu_torch.train.entry import init_distributed
+
+    dev = init_distributed(rank, world, init_method, dev, backend="gloo")
+    try:
+        res = _narrow_dist_step(_narrow_dist_config(world), dev)
+        res["backend"], res["device"] = dist.get_backend(), str(dev)
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, f"{out}.{rank}")
+
+
+def _same_bits(a, b):
+    """Tensors (or dicts of them) equal bit for bit; the number that are
+    not."""
+    if isinstance(a, dict):
+        return sum(_same_bits(v, b[k]) for k, v in a.items())
+    return int(not torch.equal(a, b))
+
+
+def phase_dist(dev="cuda"):
+    """Data parallelism on the card (train/entry.py, train/dist.py):
+    (i) an NCCL group of one rank, (ii) two gloo ranks on the one card,
+    (iii) with two cards or more, min(4, cards) NCCL ranks at the fashion
+    preset (cli/bench_train.py's data-parallel bench). Returns the
+    launches each part made, summed over its ranks, and (iii)'s
+    results or None."""
+    from pasta_tpu_torch.cli import bench_train
+    from pasta_tpu_torch.train.entry import spawn
+
+    card = torch.device(dev).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="pasta_smoke_dist_")
+    launched = [0, 0, 0, 0]
+    # cuBLAS's deterministic workspace for (i)'s process, set before it
+    # starts
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    try:
+        # (i) the step in a group of one is the step without a group
+        t0 = time.perf_counter()
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        try:
+            spawn(_dist_group_of_one, 1, "file://" + os.path.join(tmp, "rdv1"),
+                  os.path.join(tmp, "one.pt"), dev)
+        finally:
+            if env is None:
+                del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+        one = torch.load(os.path.join(tmp, "one.pt"), weights_only=False)
+        a, a2, b = one["plain"][0], one["plain"][1], one["grouped"]
+        repro = _same_bits(a["params"], a2["params"])
+        check(repro == 0 and a["metrics"] == a2["metrics"],
+              f"dist (i): the step without a group is not bit-reproducible "
+              f"on the card ({repro} of 4 modules differ), so bit-equality "
+              "with the grouped step cannot be held")
+        diff = _same_bits(a["params"], b["params"])
+        check(diff == 0 and _same_bits(a["w_avg"], b["w_avg"]) == 0
+              and a["metrics"] == b["metrics"] and a["ada_p"] == b["ada_p"],
+              f"dist (i): the step in an NCCL group of one differs from the "
+              f"step without a group ({diff} of 4 modules; metrics "
+              f"{a['metrics']} vs {b['metrics']})")
+        check(b["backend"] == ("nccl" if card else "gloo"), b["backend"])
+        check(b["counts"] == a["counts"] and (min(b["counts"]) > 0
+                                              or not card),
+              f"dist (i): launches {b['counts']} vs {a['counts']}")
+        launched = [x + y for x, y in zip(launched, b["counts"])]
+        print(f"[dist] (i) {b['backend']} group of one rank, narrow 64px "
+              f"fp32 step "
+              f"with R1 at batch 4: bit-equal to the step without a group "
+              f"(parameters of G, D, DP, G-EMA, w_avg, ada_p, "
+              f"{len(a['metrics'])} metrics; the plain step twice bit-equal "
+              f"too) | launches K1 fwd/dX, K2, K3 {list(b['counts'])} | "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # (ii) two gloo ranks on CUDA tensors, one card, against (i)'s step
+        # at the global batch
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "gloo.pt")
+        spawn(_dist_gloo_rank, 2, "file://" + os.path.join(tmp, "rdv2"), out,
+              dev)
+        ranks = [torch.load(f"{out}.{r}", weights_only=False)
+                 for r in range(2)]
+        for r in ranks:
+            check(r["backend"] == "gloo" and r["device"] == (
+                "cuda:0" if card else "cpu"), (r["backend"], r["device"]))
+            check(_same_bits(r["params"], ranks[0]["params"]) == 0
+                  and r["metrics"] == ranks[0]["metrics"],
+                  "dist (ii): the ranks' states differ")
+            check(r["counts"] == a["counts"],
+                  f"dist (ii): a rank launched {r['counts']}, one process "
+                  f"{a['counts']}")
+            launched = [x + y for x, y in zip(launched, r["counts"])]
+        got = ranks[0]
+        # phase 12's whole-step budget: metrics 1e-2 relative or 2e-3
+        # absolute, parameters 1e-4 of each module's norm
+        for k, v in a["metrics"].items():
+            check(abs(got["metrics"][k] - v) <= max(2e-3, 1e-2 * abs(v)),
+                  f"dist (ii): {k} {got['metrics'][k]} vs {v}")
+        errs = {k: ((got["params"][k] - v).norm() / v.norm()).item()
+                for k, v in a["params"].items()}
+        errs["w_avg"] = ((got["w_avg"] - a["w_avg"]).norm()
+                         / a["w_avg"].norm()).item()
+        check(max(errs.values()) <= 1e-4 and got["ada_p"] == a["ada_p"],
+              f"dist (ii): parameters {errs}, ada_p {got['ada_p']} vs "
+              f"{a['ada_p']}")
+        print(f"[dist] (ii) two gloo ranks on CUDA tensors on one card, "
+              f"batch 2 a rank: ranks bit-equal; against one process at the "
+              f"global batch 4: largest metric gap "
+              f"{max(abs(got['metrics'][k] - v) for k, v in a['metrics'].items()):.3g}"
+              f", parameters relative "
+              f"{', '.join(f'{k} {v:.2g}' for k, v in errs.items())} | "
+              f"launches a rank {list(got['counts'])} | "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (iii) the fashion preset over the cards
+    cards = torch.cuda.device_count()
+    if not card:
+        return launched, None
+    if cards < 2:
+        print(f"[dist] (iii) needs 2 CUDA devices or more, {cards} here: "
+              "python3 -m pasta_tpu_torch.cli.bench_train --devices 4 on "
+              "four cards runs it", flush=True)
+        return launched, None
+    world = min(4, cards)
+    t0 = time.perf_counter()
+    results = bench_train.bench_ranks(world, TRAIN_BATCH, N_TRAIN_TIMED)
+    one_card = (TRAIN_K1_FWD, TRAIN_K1_DX, TRAIN_K2, TRAIN_K3)
+    with_r1 = tuple(x + y for x, y in zip(one_card, (R1_K1_FWD, R1_K1_DX,
+                                                      R1_K2, R1_K3)))
+    for r in results:
+        check(tuple(r["launches"]) == one_card
+              and tuple(r["launches_r1"]) == with_r1,
+              f"dist (iii) rank {r['rank']}: launches {r['launches']}, R1 "
+              f"{r['launches_r1']}, not one card's {one_card}, {with_r1}")
+        for k, v in list(r["metrics"].items()) + list(
+                r["metrics_r1"].items()):
+            check(np.isfinite(v), f"dist (iii) rank {r['rank']}: {k} = {v}")
+        launched = [x + int(round(y * N_TRAIN_TIMED)) + z for x, y, z in
+                    zip(launched, r["launches"], r["launches_r1"])]
+    bench_train.print_ranks(results, TRAIN_BATCH)
+    print(f"[dist] (iii) {world} NCCL ranks, fashion preset, batch "
+          f"{TRAIN_BATCH} a card: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launched, results
+
+
 def main():
     smi = phase_device()
     from pasta_tpu_torch.ops import affine_warp as shift
@@ -1638,6 +1867,7 @@ def main():
     opt_counts, opt_shapes = phase_train_options(k1, shift)
     opt_errs = phase_options_kernels(k1, shift, opt_shapes)
     phase_options_check()
+    dist_counts, _ = phase_dist()
     k1_rows = rows + train_rows["K1"]
 
     def total(rs, key):
@@ -1665,12 +1895,13 @@ def main():
     # launches: each main path driven with the counts at 0 just before it
     # and read just after (serving, the bare training steps, the training
     # run through the command line and its run with the options, the
-    # options' steps), summed
+    # options' steps, the data-parallel steps summed over their ranks),
+    # summed
     print(json.dumps({"kernels": [
         entry("conv3x3_valid", "pasta_tpu_torch/csrc/conv3x3.cu",
               "pasta_tpu/ops/pallas_conv.py:139",
               launches + k1_total + sum(run_counts[:2]) + sum(opt_run[:2])
-              + sum(opt_counts[:2]),
+              + sum(opt_counts[:2]) + sum(dist_counts[:2]),
               k1_rows, opt_errs["K1"], launches_serving=launches, launches_train=counts[0],
               launches_dx=counts[1], launches_train_run=run_counts[0],
               launches_train_run_dx=run_counts[1],
@@ -1680,6 +1911,7 @@ def main():
               launches_options_dx=opt_counts[1],
               launches_options_fp32=opt_counts[4],
               launches_options_run=opt_run[0],
+              launches_dist=dist_counts[0], launches_dist_dx=dist_counts[1],
               launches_options_run_dx=opt_run[1],
               ms_fp32=total(fp32, "ms"), ms_bf16=total(bf16, "ms"),
               bound_ms_fp32=total(fp32, "bound_ms"),
@@ -1688,16 +1920,20 @@ def main():
               library_ms_bf16=total(bf16, "library_ms")),
         entry("shift_fwd", "pasta_tpu_torch/csrc/shift.cu",
               "pasta_tpu/ops/affine_warp.py:142",
-              counts[2] + run_counts[2] + opt_run[2] + opt_counts[2],
+              counts[2] + run_counts[2] + opt_run[2] + opt_counts[2]
+              + dist_counts[2],
               train_rows["K2"], opt_errs["K2"], launches_train=counts[2],
               launches_train_run=run_counts[2], launches_options=opt_counts[2],
-              launches_options_run=opt_run[2]),
+              launches_options_run=opt_run[2],
+              launches_dist=dist_counts[2]),
         entry("shift_bwd", "pasta_tpu_torch/csrc/shift.cu",
               "pasta_tpu/ops/affine_warp.py:181",
-              counts[3] + run_counts[3] + opt_run[3] + opt_counts[3],
+              counts[3] + run_counts[3] + opt_run[3] + opt_counts[3]
+              + dist_counts[3],
               train_rows["K3"], opt_errs["K3"], launches_train=counts[3],
               launches_train_run=run_counts[3], launches_options=opt_counts[3],
-              launches_options_run=opt_run[3]),
+              launches_options_run=opt_run[3],
+              launches_dist=dist_counts[3]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,17 +12,32 @@ and that stage's parts, each timed alone; `--profile` adds a torch.profiler
 breakdown of one regular step (device idle share, kernel time by name).
 TF32 is off.
 
+`--devices N` (N > 1) times the data-parallel step instead: N processes,
+one card each, in an NCCL process group (train/entry.py), each with
+`--batch` rows of the global batch of N x `--batch` and the state
+broadcast from rank 0. Each rank runs a warm-up step, `--steps` regular
+steps and one R1 step, timed as above, and times each phase's gradient
+all-reduce (train/dist.py::reduce_phase) with CUDA events around it: from
+the phase's gradients queued on this rank to the reduced buffer, which
+includes the wait for the slowest rank. Prints per rank s/step, sec/kimg
+of the global batch, the all-reduce ms and MB per phase, the peak device
+memory and the launches per step, and one JSON line of them all.
+
 Run from the repository root:
     python3 -m pasta_tpu_torch.cli.bench_train [--batch 4] [--steps 3]
-        [--res 512] [--skip-r1] [--no-vgg] [--profile]
+        [--res 512] [--skip-r1] [--no-vgg] [--profile] [--devices N]
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -51,18 +66,23 @@ def reset_kernel_counts():
 
 
 def setup(cfg, device, seed=0, use_vgg=True):
-    """(state, train_step, batch, generator) for `cfg` on `device`."""
+    """(state, train_step, batch, generator) for `cfg` on `device`; in a
+    process group, this rank's rows of the batch, rank 0's state and a
+    generator of its own."""
     from pasta_tpu_torch.losses.vgg import VGG19Features
+    from pasta_tpu_torch.train.dist import rank, world_size
+    from pasta_tpu_torch.train.entry import replicate, shard_batch
     from pasta_tpu_torch.train.state import batch_to, example_batch, init_state
     from pasta_tpu_torch.train.steps import make_train_step
 
-    state = init_state(cfg, seed=seed, device=device)
+    state = replicate(init_state(cfg, seed=seed, device=device))
     vgg = None
     if use_vgg and cfg.vgg_weight > 0:
         vgg = VGG19Features(seed=seed + 3).to(device).requires_grad_(False)
     step = make_train_step(cfg, vgg)
-    batch = batch_to(example_batch(cfg, np.random.RandomState(seed)), device)
-    generator = torch.Generator(device=device).manual_seed(seed)
+    batch = batch_to(shard_batch(example_batch(
+        cfg, np.random.RandomState(seed)), rank(), world_size()), device)
+    generator = torch.Generator(device=device).manual_seed(seed + rank())
     return state, step, batch, generator
 
 
@@ -82,6 +102,143 @@ def timed_steps(step, state, batch, generator, n, do_r1=False):
     torch.cuda.synchronize()
     host = (time.perf_counter() - t0) / n
     return host, a.elapsed_time(b) / 1e3 / n, fetch_metrics(metrics)
+
+
+# the phases whose gradients one step all-reduces, in order
+PHASES = ("Gmain", "Dmain", "DPmain")
+R1_PHASES = PHASES + ("Dr1", "DPr1")
+
+
+@contextlib.contextmanager
+def timed_reductions():
+    """Inside, every phase's all-reduce (train/dist.py::reduce_phase) is
+    timed by two CUDA events around it; yields the list that receives
+    (values reduced, start event, end event) of each."""
+    from pasta_tpu_torch.train import dist as tdist
+
+    original = tdist.reduce_phase
+    record = []
+
+    def timed(grads, metrics):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = original(grads, metrics)
+        b.record()
+        record.append((sum(g.numel() for g in grads), a, b))
+        return out
+
+    tdist.reduce_phase = timed
+    try:
+        yield record
+    finally:
+        tdist.reduce_phase = original
+
+
+def rank_bench(cfg, steps, device, use_vgg=True):
+    """This rank's data-parallel step at `cfg`, on its card: a warm-up
+    step, `steps` timed regular steps and one R1 step (the ranks start
+    each run together). Returns its times, all-reduce ms and MB per phase,
+    peak GiB, launches per step and metrics."""
+    from pasta_tpu_torch.train.dist import rank
+    from pasta_tpu_torch.train.entry import barrier
+
+    state, step, batch, gen = setup(cfg, device, use_vgg=use_vgg)
+    t0 = time.perf_counter()
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    with timed_reductions() as record:
+        barrier()
+        host, dev, metrics = timed_steps(step, state, batch, gen, steps)
+        counts = kernel_counts()
+        reset_kernel_counts()
+        n_regular = len(record)
+        barrier()
+        host_r1, dev_r1, (metrics_r1,) = timed_steps(step, state, batch, gen,
+                                                     1, do_r1=True)
+        counts_r1 = kernel_counts()
+    if n_regular != steps * len(PHASES) \
+            or len(record) - n_regular != len(R1_PHASES):
+        raise RuntimeError(f"bench_train: {len(record)} all-reduces over "
+                           f"{steps} regular steps and one R1 step")
+    ms = [a.elapsed_time(b) for _, a, b in record]
+    mb = [n * 4 / 1e6 for n, _, _ in record]
+    regular = {p: sum(ms[i::len(PHASES)][:steps]) / steps
+               for i, p in enumerate(PHASES)}
+    return dict(
+        rank=rank(), card=torch.cuda.get_device_name(), warm_s=warm,
+        s_per_step=host, s_per_step_events=dev,
+        sec_per_kimg=host * 1000 / cfg.batch_size, r1_s=host_r1,
+        r1_s_events=dev_r1, allreduce_ms=regular,
+        allreduce_mb={p: mb[i] for i, p in enumerate(PHASES)},
+        r1_allreduce_ms=dict(zip(R1_PHASES, ms[n_regular:])),
+        r1_allreduce_mb=dict(zip(R1_PHASES, mb[n_regular:])),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches=[c / steps for c in counts], launches_r1=list(counts_r1),
+        metrics=metrics[-1], metrics_r1=metrics_r1)
+
+
+def _bench_rank(rank, world, opts, init_method, out):
+    import torch.distributed as dist
+
+    from pasta_tpu_torch.train.config import fashion_config
+    from pasta_tpu_torch.train.entry import init_distributed
+
+    device = init_distributed(rank, world, init_method, "cuda")
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = fashion_config(batch_size=opts["batch"] * world,
+                             data_axis_size=world, resolution=opts["res"])
+        res = rank_bench(cfg, opts["steps"], device, opts["use_vgg"])
+        results = [None] * world
+        dist.all_gather_object(results, res)
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def bench_ranks(world, batch=4, steps=3, res=512, use_vgg=True):
+    """`rank_bench` on `world` spawned ranks, one card each (NCCL), at the
+    fashion preset with `batch` rows a rank; the ranks' results in rank
+    order."""
+    from pasta_tpu_torch.train.entry import spawn
+
+    if torch.cuda.device_count() < world:
+        raise RuntimeError(f"bench_train: {world} ranks need {world} CUDA "
+                           f"devices, {torch.cuda.device_count()} found")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "ranks.json")
+        spawn(_bench_rank, world, dict(batch=batch, steps=steps, res=res,
+                                       use_vgg=use_vgg),
+              "file://" + os.path.join(tmp, "rendezvous"), out)
+        with open(out) as f:
+            return json.load(f)
+
+
+def print_ranks(results, batch):
+    """One line a rank, then one JSON line of them all."""
+    world = len(results)
+    for r in results:
+        print(f"[ranks {world}] rank {r['rank']} ({r['card']}): regular "
+              f"{r['s_per_step']:.4f} s/step host, {r['s_per_step_events']:.4f}"
+              f" CUDA events, {r['sec_per_kimg']:.1f} sec/kimg of the global "
+              f"batch {batch * world} | R1 step {r['r1_s']:.4f} s | "
+              f"all-reduce ms (MB) "
+              + ", ".join(f"{p} {r['allreduce_ms'][p]:.3f} "
+                          f"({r['allreduce_mb'][p]:.1f})" for p in PHASES)
+              + " | R1 step " + ", ".join(
+                  f"{p} {v:.3f}" for p, v in r["r1_allreduce_ms"].items())
+              + f" | peak {r['peak_gib']:.2f} GiB | launches per step K1 "
+              f"fwd/dX, K2, K3 {r['launches']}, R1 step {r['launches_r1']}",
+              flush=True)
+    print(json.dumps({"ranks": world, "batch_per_rank": batch,
+                      "results": results}), flush=True)
 
 
 def _event_ms(fn, iters):
@@ -365,6 +522,8 @@ def main(argv=None):
     ap.add_argument("--skip-r1", action="store_true")
     ap.add_argument("--no-vgg", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="ranks, one card each: the data-parallel step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_train: needs an NVIDIA GPU", file=sys.stderr)
@@ -377,6 +536,10 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
         check=True).stdout.strip(), flush=True)
+    if args.devices > 1:
+        print_ranks(bench_ranks(args.devices, args.batch, args.steps,
+                                args.res, not args.no_vgg), args.batch)
+        return
     cfg = fashion_config(batch_size=args.batch, resolution=args.res)
     t0 = time.perf_counter()
     state, step, batch, gen = setup(cfg, "cuda", use_vgg=not args.no_vgg)

@@ -16,12 +16,20 @@ The training options follow the JAX CLI: --pl_weight (Gpl),
 --reuse-g-fakes (true implies --strict-phase-noise false). The contextual
 loss runs on the same VGG19 as the perceptual loss.
 
+More than one GPU (train/entry.py; --batch stays the global batch):
+--devices N (--gpus N) spawns N processes on this host, one card each
+(NCCL), meeting through a file:// rendezvous in the run directory, as
+the reference's train.py spawned its GPUs; fewer than N cards raise.
+--device cpu --devices N runs N gloo processes on the CPU. --coordinator
+host:port --num-processes P --process-id i makes this process rank i of P
+single-card processes meeting at tcp://host:port (the JAX CLI's
+multi-host bootstrap); process 0 writes the run directory.
+
 Flags of options the port has not got yet are accepted and raise
 NotImplementedError with the option's name when set off their default:
---devices / --gpus above 1, --metrics, --tryon-grid, --trace. The JAX
-CLI's --step-mode, --remat*, --d-remat,
---vgg-remat, --ada-impl, --coordinator, --num-processes and --process-id
-steer its TPU program and are not flags here.
+--metrics, --tryon-grid, --trace. The JAX CLI's --step-mode, --remat*,
+--d-remat, --vgg-remat and --ada-impl steer its TPU program and are not
+flags here.
 """
 
 from __future__ import annotations
@@ -58,7 +66,13 @@ def parse_args(argv=None):
     p.add_argument("--subset", type=int, default=None,
                    help="train with only N images (reference train.py:43)")
     p.add_argument("--cfg", default="fashion", choices=["fashion", "smoke"])
-    p.add_argument("--devices", "--gpus", type=int, default=1, dest="devices")
+    p.add_argument("--devices", "--gpus", type=int, default=1, dest="devices",
+                   help="processes to spawn on this host, one card each")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0: this process is one rank "
+                        "of --num-processes (one card each)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to train: the card, or the CPU when asked")
     p.add_argument("--batch", type=int, default=None)
@@ -127,14 +141,29 @@ def _refuse_deferred(args):
             "a step)")
 
 
+def world_of(args):
+    """The number of ranks the flags ask for."""
+    if args.coordinator is None:
+        return args.devices
+    if args.devices != 1:
+        raise ValueError("--coordinator runs one card a process: "
+                         "--devices must stay 1")
+    if args.num_processes is None or args.process_id is None \
+            or not 0 <= args.process_id < args.num_processes:
+        raise ValueError("--coordinator needs --num-processes P and "
+                         "--process-id in [0, P)")
+    return args.num_processes
+
+
 def build_config(args):
     from ..train.config import TrainConfig, smoke_config
 
     _refuse_deferred(args)
+    world = world_of(args)
     if args.cfg == "smoke":
-        cfg = smoke_config(args.devices)
+        cfg = smoke_config(world)
     else:
-        cfg = TrainConfig(data_axis_size=args.devices)
+        cfg = TrainConfig(data_axis_size=world)
     updates = dict(
         l1_weight=args.l1weight,
         vgg_weight=args.vgg_weight,
@@ -208,39 +237,85 @@ def main(argv=None):
             raise SystemExit(
                 "pasta_tpu_torch.cli.train: needs an NVIDIA GPU "
                 "(pass --device cpu to train on the CPU)")
+        if torch.cuda.device_count() < args.devices:
+            raise SystemExit(
+                f"pasta_tpu_torch.cli.train: --devices {args.devices} needs "
+                f"{args.devices} CUDA devices, {torch.cuda.device_count()} "
+                "found")
 
-    run_dir = next_run_dir(
-        args.outdir, f"{args.cfg}-b{cfg.batch_size}-d{cfg.data_axis_size}")
-    with open(os.path.join(run_dir, "training_options.json"), "w") as f:
-        json.dump({**dataclasses.asdict(cfg), "args": vars(args)}, f, indent=2)
-    print(f"run dir: {run_dir}")
-    print(json.dumps(dataclasses.asdict(cfg), indent=2))
+    run_dir = None
+    if args.coordinator is None or args.process_id == 0:
+        run_dir = next_run_dir(
+            args.outdir,
+            f"{args.cfg}-b{cfg.batch_size}-d{cfg.data_axis_size}")
+        with open(os.path.join(run_dir, "training_options.json"), "w") as f:
+            json.dump({**dataclasses.asdict(cfg), "args": vars(args)}, f,
+                      indent=2)
+        print(f"run dir: {run_dir}")
+        print(json.dumps(dataclasses.asdict(cfg), indent=2))
 
     if args.dry_run:
         print("dry run: config OK, exiting")
         return None
 
+    if args.coordinator is not None:
+        train_rank(args.process_id, args.num_processes, args, cfg, run_dir,
+                   f"tcp://{args.coordinator}", 1)
+    elif args.devices > 1:
+        from ..train.entry import spawn
+
+        rendezvous = os.path.join(run_dir, ".rendezvous")
+        try:
+            spawn(train_rank, args.devices, args, cfg, run_dir,
+                  "file://" + rendezvous, None)
+        finally:
+            if os.path.exists(rendezvous):
+                os.remove(rendezvous)
+    else:
+        train(args, cfg, run_dir, args.device)
+    return run_dir
+
+
+def train_rank(rank, world, args, cfg, run_dir, init_method, local_world):
+    """One rank of a data-parallel run: joins the process group (its own
+    card, or gloo on the CPU), trains, leaves."""
+    import torch.distributed as dist
+
+    from ..train.entry import init_distributed
+
+    device = init_distributed(rank, world, init_method, args.device,
+                              local_world=local_world)
+    try:
+        train(args, cfg, run_dir, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def train(args, cfg, run_dir, device):
+    """The dataset, the VGG19 and the training loop on `device`."""
     from ..data.trainsets import TryonTrainDataset
+    from ..train.dist import rank
     from ..train.loop import training_loop
 
+    chief = rank() == 0
     dataset = TryonTrainDataset(args.data, seed=args.seed,
                                 resolution=cfg.resolution,
                                 loader_impl=cfg.loader_impl,
                                 max_size=args.subset,
                                 xflip=bool(args.mirror),
                                 random_seed=args.seed)
-    print(f"dataset: {len(dataset)} images from {args.data}")
+    if chief:
+        print(f"dataset: {len(dataset)} images from {args.data}")
     vgg = None
     if cfg.vgg_weight > 0 or cfg.contextual_weight > 0:
-        vgg = load_vgg_params(args.vgg19, seed=args.seed).to(args.device)
-        if args.vgg19 is None:
+        vgg = load_vgg_params(args.vgg19, seed=args.seed).to(device)
+        if args.vgg19 is None and chief:
             print("WARNING: no --vgg19 weights; the VGG and contextual "
                   "losses run on seeded random weights")
     training_loop(cfg, dataset, run_dir, vgg=vgg, resume_path=args.resume,
                   total_steps=args.max_steps, tick_interval=args.tick,
                   num_workers=args.workers, snapshot_ticks=args.snap,
-                  seed=args.seed, device=args.device)
-    return run_dir
+                  seed=args.seed, device=device)
 
 
 if __name__ == "__main__":

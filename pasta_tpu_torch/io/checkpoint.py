@@ -9,6 +9,9 @@ package's orbax directory is atomic too). `load_checkpoint` restores a
 continues from exactly the saved parameters, EMA, moments, `ada_p` and
 `pl_mean` (0 in a file written before Gpl was ported). `io/npz_ckpt.py`
 is the format that crosses to the JAX package.
+
+With ranks, rank 0 writes (train/loop.py) and every rank reads the same
+file onto its own card, so that every rank resumes with the same bits.
 """
 
 from __future__ import annotations
@@ -34,7 +37,10 @@ def save_checkpoint(path, state):
 
 def load_checkpoint(path, state):
     """Restore `state` in place from a file of `save_checkpoint`; returns
-    it. Strict: a missing or unexpected key raises."""
+    it. Strict: a missing or unexpected key raises. The file is read into
+    host memory and each tensor copied onto the device of what it
+    restores (each rank's card); Adam's step counters stay on the host,
+    where torch's Adam reads them without a device sync."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     for name in _MODULES:
         getattr(state, name).load_state_dict(payload[name], strict=True)

@@ -14,13 +14,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..train.dist import all_reduce_mean
+
 
 def contextual_distance(x_feat, y_feat, h=0.5, eps=1e-5):
     """CX distance between feature maps [N, H, W, C]
-    (loss_fullbody.py:574-618): features centred on the target's mean,
-    L2-normalised, matched by a softmax over relative cosine distances."""
+    (loss_fullbody.py:574-618): features centred on the target's mean over
+    the global batch, L2-normalised, matched by a softmax over relative
+    cosine distances."""
     n, _, _, c = x_feat.shape
-    y_mu = y_feat.mean(dim=(0, 1, 2), keepdim=True)
+    # the target's mean over the global batch (every rank holds as many
+    # pixels); the target carries no gradient
+    y_mu = all_reduce_mean(y_feat.mean(dim=(0, 1, 2), keepdim=True))
     x = x_feat - y_mu
     y = y_feat - y_mu
     x = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + eps)

@@ -7,11 +7,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..train.dist import all_reduce_sum, grouped, world_size
+
 PARSING_CLASS_WEIGHTS = (1.0, 3.0, 4.0, 4.0, 4.0, 4.0, 4.0)
 
 
 def weighted_parsing_ce(logits, targets, ignore_index=255):
-    """sum(w_t * nll) / sum(w_t) over the non-ignored pixels.
+    """sum(w_t * nll) / sum(w_t) over the non-ignored pixels of the global
+    batch (every rank's, under data parallelism).
 
     Args:
         logits:  [N, H, W, 7].
@@ -25,4 +28,12 @@ def weighted_parsing_ce(logits, targets, ignore_index=255):
     cw = torch.tensor(PARSING_CLASS_WEIGHTS, dtype=logp.dtype,
                       device=logits.device)
     w = (onehot @ cw) * valid.to(logits.dtype)
-    return (w * nll).sum() / w.sum().clamp_min(1e-8)
+    num, den = (w * nll).sum(), w.sum()
+    if grouped():
+        # the quotient of the GLOBAL sums (the JAX step's, over the whole
+        # batch): the denominator summed over ranks (it carries no
+        # gradient), the numerator scaled so that the mean of the ranks'
+        # losses and of their gradients is the global quotient's
+        den = all_reduce_sum(den.detach())
+        num = num * world_size()
+    return num / den.clamp_min(1e-8)

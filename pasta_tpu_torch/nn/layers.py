@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from ..ops import bias_act, conv2d_resample, setup_filter
 from ..ops.bias_act import activation_funcs
+from ..train.dist import all_gather_batch, rank
 
 
 def _normal(std):
@@ -178,20 +179,29 @@ class ResBlock(nn.Module):
 
 class MinibatchStdLayer(nn.Module):
     """Append cross-minibatch stddev features (reference networks.py:
-    527-549). Groups are batch-strided: sample j is in group j % (N/G)."""
+    527-549). Groups are batch-strided over the GLOBAL batch: sample j of
+    N is in group j % (N/G). Under data parallelism the layer gathers every
+    rank's rows (rank r's at [r * n, (r + 1) * n), `train/dist.py`), groups
+    them as the JAX step groups its global batch under `jit` -- a group
+    spans ranks -- and keeps this rank's rows; the gather is
+    differentiable, R1's double backward included."""
 
     def __init__(self, group_size=4, num_channels=1):
         super().__init__()
         self.group_size, self.num_channels = group_size, num_channels
 
     def forward(self, x):
-        n, h, w, c = x.shape
+        xs = all_gather_batch(x)
+        n, h, w, c = xs.shape
         g = min(self.group_size, n) if self.group_size is not None else n
         f = self.num_channels
-        y = x.reshape(g, n // g, h, w, f, c // f)
+        y = xs.reshape(g, n // g, h, w, f, c // f)
         y = y - y.mean(dim=0, keepdim=True)
         y = y.square().mean(dim=0)
         y = torch.sqrt(y + 1e-8)
         y = y.mean(dim=(1, 2, 4))                     # [n//g, F]
         y = y[:, None, None, :].repeat(g, h, w, 1)    # [N, H, W, F]
+        if n != x.shape[0]:                           # this rank's rows
+            r = rank()
+            y = y[r * x.shape[0]:(r + 1) * x.shape[0]]
         return torch.cat([x, y.to(x.dtype)], dim=-1)

@@ -5,6 +5,11 @@ Each source compiles once per source digest into
 with ptxas's register and spill report kept for the caller to print. The
 libraries have a plain C interface: pointers and the stream go as
 ctypes.c_void_p, sizes as ctypes.c_int.
+
+In a process group (train/entry.py), the first rank of each host builds a
+missing library while the host's other ranks wait at a barrier, and then
+every rank loads it: each rank reaches its first launch of a library at
+the same point of the step, so each passes that barrier once a library.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch.distributed as dist
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -45,7 +52,7 @@ def load_library(source, bind):
     functions. Returns (ctypes library, seconds spent compiling, compiler
     output); the seconds are 0 and the output empty when the library was
     already loaded or built from the same source. Builds of different
-    sources may run in parallel threads.
+    sources may run in parallel threads, outside a process group.
     """
     with _lock:
         if source in _libs:
@@ -56,7 +63,9 @@ def load_library(source, bind):
     out_dir = os.path.join(_BUILD_ROOT, digest)
     so = os.path.join(out_dir, f"lib{os.path.splitext(source)[0]}.so")
     seconds, log = 0.0, ""
-    if not os.path.exists(so):
+    ranked = dist.is_available() and dist.is_initialized()
+    builds = not ranked or os.environ.get("LOCAL_RANK", "0") == "0"
+    if builds and not os.path.exists(so):
         os.makedirs(out_dir, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
         t0 = time.perf_counter()
@@ -67,6 +76,10 @@ def load_library(source, bind):
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{log}")
         os.replace(tmp, so)
+    if ranked:
+        from ..train.entry import barrier
+
+        barrier()
     lib = ctypes.CDLL(so)
     bind(lib)
     with _lock:

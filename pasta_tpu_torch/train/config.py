@@ -17,21 +17,31 @@ accumulation (`grad_accum`), the shared no-grad forward of the D phases
 and `grad_accum == 1`, as in the JAX step), the path-length regularizer
 (`pl_weight` with `g_reg_interval`, `pl_batch_shrink`, `pl_decay`), the
 reference's doubled parsing-D phase (`double_d_parsing`), freeze-D
-(`freeze_d_layers`) and the contextual loss (`contextual_weight`). More
-than one GPU (`data_axis_size`) raises if set to anything but 1.
+(`freeze_d_layers`) and the contextual loss (`contextual_weight`).
 `metric_items` comes with the in-training evaluator; `ada_interval` is
 unused in the JAX package too, and `style_mixing_prob` is a field there
 with no effect.
+
+More than one GPU: `data_axis_size` ranks, one a card, each with
+`batch_per_device` rows of the global `batch_size` (which must divide).
+The step's reductions over the batch are global (train/steps.py), as in
+the JAX step over a `data` mesh. One choice differs from that step, by
+decision: each rank cuts ITS rows into the `grad_accum` microbatches and
+takes ITS first rows // `r1_batch_shrink` for R1 and // `pl_batch_shrink`
+for Gpl -- the reference's per-GPU `batch_gpu` rounds and shrunk Gpl
+batch, which share the work out evenly -- where the JAX step cuts and
+takes prefixes of the global batch. So with ranks and `grad_accum` > 1 or
+a shrink above 1 a microbatch or prefix holds other samples than the JAX
+step's (rank r's first rows, not the global batch's first rows), drawn
+from the same distribution; tests/test_torch_dist_options.py holds the
+step against the JAX step on a global batch ordered so that the two
+selections coincide.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
-
-# option -> the only value the port takes yet
-_DEFERRED = dict(data_axis_size=1)
-
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -48,7 +58,7 @@ class TrainConfig:
 
     # optimization
     batch_size: int = 32
-    data_axis_size: int = 1          # number of GPUs (one, so far)
+    data_axis_size: int = 1          # number of GPUs (ranks)
     grad_accum: int = 1
     # Lazy R1 on batch // r1_batch_shrink samples (an unbiased estimate of
     # the same penalty).
@@ -110,14 +120,18 @@ class TrainConfig:
     vgg_bf16: bool = True
 
     def __post_init__(self):
-        for name, value in _DEFERRED.items():
-            if getattr(self, name) != value:
-                raise NotImplementedError(
-                    f"TrainConfig.{name}={getattr(self, name)!r} is not "
-                    f"ported yet (only {value!r})")
+        if self.data_axis_size < 1 or self.batch_size % self.data_axis_size:
+            raise ValueError(
+                f"TrainConfig.batch_size={self.batch_size} does not divide "
+                f"into data_axis_size={self.data_axis_size} ranks")
         if self.loader_impl not in ("host", "device"):
             raise ValueError(f"loader_impl {self.loader_impl!r}: "
                              "'host' or 'device'")
+
+    @property
+    def batch_per_device(self):
+        """Rows of the global batch each rank takes."""
+        return self.batch_size // self.data_axis_size
 
     def lazy_reg_scale(self, interval):
         """Lazy-regularization hyperparameter scaling

@@ -18,12 +18,21 @@ Observability: stdout tees into <run_dir>/log.txt, per-tick 3-moment stats
 go to stats.jsonl (every step is aggregated), and scalars go to TensorBoard
 events when torch.utils.tensorboard is importable.
 
+More than one card (twin of the JAX loop's multi-process path): in a
+process group of `cfg.data_axis_size` ranks (`train/entry.py`), rank r
+loads its rank-strided share of the index stream, `batch_per_device` items
+a step, and trains on them; the state starts as rank 0's (`replicate`),
+and the step keeps the ranks' states equal and its metrics global. Rank 0
+(the chief) owns all file output: log.txt, stats.jsonl, TensorBoard,
+checkpoints; the other ranks print nothing. The sample grid is skipped
+with ranks (each holds only its rows), as in the JAX loop. The ranks wait
+for each other after the first step of each lazy-phase variant and at the
+end of the run.
+
 Not here yet, each coming with the module it needs: the in-training
 evaluator (`eval_metrics`, `eval_ticks`, `eval_items`, `detector_params`,
-`metric_cache_dir`: the metrics and their detectors), the cross-pair try-on
-grid (`tryon_grid_k`: the test-mode preprocessing), and more than one
-process or device (`mesh`, `shard_batch`, `rank` / `num_replicas` beyond
-0 / 1).
+`metric_cache_dir`: the metrics and their detectors) and the cross-pair
+try-on grid (`tryon_grid_k`: the test-mode preprocessing).
 """
 
 from __future__ import annotations
@@ -45,7 +54,9 @@ from ..data.trainsets import (TryonTrainDataset, assemble_train_batch,
 from ..io.checkpoint import load_checkpoint, save_checkpoint
 from ..io.npz_ckpt import load_npz_state
 from ..summary import summarize_state
+from . import dist as tdist
 from .config import TrainConfig
+from .entry import barrier, replicate
 from .state import init_state
 from .stats import Collector, JsonlLogger, Tee
 from .steps import fetch_metrics, make_train_step
@@ -191,48 +202,60 @@ def training_loop(
 ):
     """Train on `device` (the card unless the caller asks for the CPU);
     returns the final TrainState. `vgg`: a VGG19Features module on that
-    device for the perceptual loss, or None to run without it."""
-    os.makedirs(run_dir, exist_ok=True)
-    stdout_tee = Tee(sys.stdout, os.path.join(run_dir, "log.txt"))
-    sys.stdout = stdout_tee
+    device for the perceptual loss, or None to run without it.
+
+    In a process group, every rank calls this with the same arguments and
+    its own card; only rank 0 writes into `run_dir` (the others may pass
+    None), and `abort_fn` must answer alike on every rank."""
+    world = tdist.world_size()
+    if world != cfg.data_axis_size:
+        raise ValueError(f"TrainConfig.data_axis_size={cfg.data_axis_size} "
+                         f"but the process group holds {world} ranks")
+    stream = sys.stdout
+    if tdist.rank() == 0:
+        os.makedirs(run_dir, exist_ok=True)
+        sys.stdout = Tee(stream, os.path.join(run_dir, "log.txt"))
+    else:
+        sys.stdout = open(os.devnull, "w")
     try:
         return _training_loop_impl(
             cfg, dataset, run_dir, vgg, resume_path, total_steps,
             tick_interval, snapshot_ticks, num_workers, seed, progress_fn,
             abort_fn, torch.device(device))
     finally:
-        sys.stdout = stdout_tee._stream
-        stdout_tee.close()
+        sys.stdout.close()
+        sys.stdout = stream
 
 
 def _training_loop_impl(
     cfg, dataset, run_dir, vgg, resume_path, total_steps, tick_interval,
     snapshot_ticks, num_workers, seed, progress_fn, abort_fn, device,
 ):
-    state = init_state(cfg, seed=seed, device=device)
+    rank, world = tdist.rank(), tdist.world_size()
+    is_chief = rank == 0
+    state = start_state(cfg, seed, device, resume_path)
     summarize_state(state)  # startup accounting (misc.py:201-269 analogue)
-    if resume_path is not None:
-        if resume_path.endswith(".npz"):
-            load_npz_state(resume_path, state)
-        else:
-            load_checkpoint(resume_path, state)
+    if resume_path is not None and cfg.ema_rampup is not None:
         # The reference speeds up ADA adaptation and disables the EMA rampup
         # on resume (train.py:340-342); the checkpoint restores ada_p and the
         # step exactly, so only the rampup disable applies.
-        if cfg.ema_rampup is not None:
-            cfg = dataclasses.replace(cfg, ema_rampup=None)
+        cfg = dataclasses.replace(cfg, ema_rampup=None)
 
     train_step = make_train_step(cfg, vgg)
-    loader = ParallelLoader(dataset, cfg.batch_size, num_workers, seed)
+    loader = ParallelLoader(dataset, cfg.batch_per_device, num_workers, seed,
+                            rank=rank, num_replicas=world)
     batches = iter(loader)
-    logger = JsonlLogger(run_dir)
+    logger = JsonlLogger(run_dir) if is_chief else None
     collector = Collector()
-    tb_writer = _make_tb_writer(run_dir)
+    tb_writer = _make_tb_writer(run_dir) if is_chief else None
 
     if total_steps is None:
         total_steps = cfg.total_kimg * 1000 // cfg.batch_size
 
-    generator = torch.Generator(device=device).manual_seed(seed + 1)
+    # each rank its own draws (the reference's seed * num_gpus + rank)
+    generator = torch.Generator(device=device).manual_seed(
+        (seed + 1) * world + rank)
+    variants = set()
     start_step = state.step
     t_tick = time.time()
     images_at_tick = start_step * cfg.batch_size
@@ -262,8 +285,14 @@ def _training_loop_impl(
                                         do_r1_d=do_r1_d, do_r1_dp=do_r1_d,
                                         do_pl=do_pl)
             step_metrics.append(metrics)
+            if world > 1 and (do_r1_d, do_pl) not in variants:
+                # the first step of a variant builds what it needs (the
+                # kernels, at the very first) at each rank's own pace
+                variants.add((do_r1_d, do_pl))
+                barrier()
 
             if (step + 1) % tick_interval == 0 or step == total_steps - 1:
+                # the step's metrics are already global (every rank's mean)
                 for m in fetch_metrics(step_metrics):
                     collector.report(m)
                 step_metrics.clear()
@@ -280,7 +309,8 @@ def _training_loop_impl(
                     flush=True)
                 row = {"step": step + 1, "kimg": cur_nimg / 1000,
                        "sec_per_kimg": sec_per_kimg, **collector.as_dict()}
-                logger.write(row)
+                if logger is not None:
+                    logger.write(row)
                 if tb_writer is not None:
                     for name, val in row.items():
                         if isinstance(val, dict):
@@ -295,18 +325,36 @@ def _training_loop_impl(
                 images_at_tick = cur_nimg
 
                 tick_idx = (step + 1) // tick_interval
-                if tick_idx % snapshot_ticks == 0 or step == total_steps - 1:
-                    _save_snapshot(state, batch, run_dir, step + 1)
+                if is_chief and (tick_idx % snapshot_ticks == 0
+                                 or step == total_steps - 1):
+                    # with ranks, no sample grid: each holds only its rows
+                    _save_snapshot(state, batch if world == 1 else None,
+                                   run_dir, step + 1)
                 if progress_fn is not None:
                     progress_fn(cur_nimg, cfg.total_kimg * 1000)
                 if abort_fn is not None and abort_fn():
                     break
     finally:
         loader.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
         if tb_writer is not None:
             tb_writer.close()
+    barrier()   # the chief's last snapshot is written
     return state
+
+
+def start_state(cfg, seed, device, resume_path=None):
+    """The state a run starts from: `init_state` on `device`, restored from
+    `resume_path` (a `.pt` of this package or a flat `.npz` of either; every
+    rank reads it), then rank 0's on every rank (`replicate`)."""
+    state = init_state(cfg, seed=seed, device=device)
+    if resume_path is not None:
+        if resume_path.endswith(".npz"):
+            load_npz_state(resume_path, state)
+        else:
+            load_checkpoint(resume_path, state)
+    return replicate(state)
 
 
 def _make_tb_writer(run_dir):
@@ -322,9 +370,15 @@ def _make_tb_writer(run_dir):
 
 
 def _save_snapshot(state, batch, run_dir, step):
-    """EMA-generator sample grid + full-state checkpoint."""
+    """EMA-generator sample grid + full-state checkpoint; the checkpoint
+    alone when `batch` is None."""
     from ..data.cihp import parsing2im
 
+    ckpt = os.path.join(run_dir, f"ckpt-{step:06d}.pt")
+    if batch is None:
+        save_checkpoint(ckpt, state)
+        print(f"snapshot: {ckpt}", flush=True)
+        return
     n_vis = min(8, batch["real_img"].shape[0])
     sub = {k: v[:n_vis] for k, v in batch.items()}
     with torch.no_grad():
@@ -353,6 +407,5 @@ def _save_snapshot(state, batch, run_dir, step):
     save_image_grid(
         color, os.path.join(run_dir, f"fakes{step:06d}_parsing_color.png"),
         drange=(0, 255), grid_cols=n_vis)
-    ckpt = os.path.join(run_dir, f"ckpt-{step:06d}.pt")
     save_checkpoint(ckpt, state)
     print(f"snapshot: fakes{step:06d}.png + {ckpt}", flush=True)

@@ -20,6 +20,7 @@ from ..losses.gan import d_logistic_loss, g_nonsat_loss, r1_penalty
 from ..losses.parsing import weighted_parsing_ce
 from ..losses.vgg import FEATURE_WEIGHTS, vgg_features
 from .augment import AugmentConfig, augment_pipe
+from .dist import world_size
 
 
 def gt_parsing_onehot(gt_parsing):
@@ -75,7 +76,11 @@ def build_loss_cores(cfg, d, dp, vgg=None):
     use_contextual = cfg.contextual_weight > 0 and vgg is not None
 
     def _can_batch_d(n):
+        """Whether one interleaved D call equals separate calls on `n`
+        samples a stream; the minibatch-std groups take the global batch
+        (every rank's `n`)."""
         gs = cfg.mbstd_group_size
+        n = n * world_size()
         return gs is not None and n >= gs and n % gs == 0
 
     def _d_in(img, pose, ada_p, generator):

@@ -128,7 +128,9 @@ def batch_to(batch, device):
 
 def init_state(cfg: TrainConfig, seed=0, device="cuda") -> TrainState:
     """Models, EMA copy and optimizers on `device`: the card unless the
-    caller asks for the CPU, as the parity tests do."""
+    caller asks for the CPU, as the parity tests do. With ranks, each
+    calls it on its own card and `train/entry.py::replicate` then gives
+    every rank rank 0's state."""
     g, d, dp = make_models(cfg, seed)
     g, d, dp = g.to(device), d.to(device), dp.to(device)
     g_ema = copy.deepcopy(g).requires_grad_(False)

@@ -17,6 +17,17 @@ gradients over that many microbatches (the JAX step's `_accum_grad`), and
 G's w_avg becomes the mean of the microbatches' updates, each taken from
 the step's starting value. Gpl and the R1 phases run on the whole batch.
 
+Data parallelism (`train/entry.py`, `train/dist.py`): each rank runs the
+step on its rows of the global batch, and the step's reductions over the
+batch are global, as under the JAX step's `jit` over a `data` mesh: each
+phase's gradients and metrics are meaned over ranks in one all-reduce
+before they are sanitized and applied (so the metrics, ADA's `real_signs`
+among them, are the global batch's), w_avg and Gpl's `pl_mean` take the
+global mean, and the minibatch-std groups, the parsing CE's denominator
+and the contextual loss's target mean span the ranks. Microbatches and
+the R1 and Gpl prefixes are each rank's own (`train/config.py` says what
+that selects). Every rank ends the step with the same bits.
+
 Gradients are taken with torch.autograd.grad with respect to the
 parameters the module's Adam updates (freeze-D leaves the frozen ones
 out), sanitized (nan -> 0, +-inf -> +-1e5) where the JAX step sanitizes
@@ -36,6 +47,7 @@ import math
 
 import torch
 
+from . import dist as tdist
 from .loss_terms import build_loss_cores
 from .state import trained_named_params
 
@@ -180,11 +192,19 @@ def _loss_pl(cfg, state, batch, generator, pl_noise=None):
                                       create_graph=True)
     # [N, num_ws, w_dim] -> per-sample length: sqrt(mean_ws sum_dim g^2)
     pl_lengths = pl_grads.square().sum(dim=2).mean(dim=1).sqrt()
-    pl_mean = state.pl_mean + (pl_lengths.mean() - state.pl_mean) \
-        * cfg.pl_decay
-    pl_penalty = (pl_lengths - pl_mean).square().mean()
-    loss = pl_penalty * cfg.pl_weight * cfg.g_reg_interval
-    return loss, dict(pl_penalty=pl_penalty), pl_mean
+    penalty, pl_mean = pl_penalty(pl_lengths, state.pl_mean, cfg.pl_decay)
+    loss = penalty * cfg.pl_weight * cfg.g_reg_interval
+    return loss, dict(pl_penalty=penalty), pl_mean
+
+
+def pl_penalty(pl_lengths, pl_mean, decay):
+    """(penalty, new pl_mean) of Gpl's path lengths: pl_mean moves towards
+    the lengths' mean over the global batch (every rank's), with the
+    gradient through that mean, and the penalty is the lengths' mean
+    squared distance from it."""
+    pl_mean = pl_mean + (tdist.all_reduce_mean(pl_lengths.mean())
+                         - pl_mean) * decay
+    return (pl_lengths - pl_mean).square().mean(), pl_mean
 
 
 def _loss_d(c, state, batch, generator):
@@ -301,6 +321,8 @@ def make_train_step(cfg, vgg=None):
         if accum > 1:
             grads = [g / accum for g in grads]
             metrics = {k: v / accum for k, v in metrics.items()}
+        # the means over ranks, then sanitized, as the JAX step's psum
+        grads, metrics = tdist.reduce_phase(grads, metrics)
         if sanitize and cfg.sanitize_grads:
             grads = _sanitize(grads)
         apply_grads(opt, module, grads)
@@ -308,22 +330,28 @@ def make_train_step(cfg, vgg=None):
 
     def g_main(state, batch, generator, c, keep):
         """Gmain; under grad_accum, each microbatch's w_avg update is taken
-        from the step's starting w_avg, and w_avg becomes their mean."""
+        from the step's starting w_avg, and w_avg becomes their mean. With
+        ranks, w_avg becomes the mean of the ranks' too: the update is
+        linear in the batch mean of w, so that is the global batch's."""
         a = cfg.grad_accum
-        if a == 1:
-            return update(state.g_opt, state.g, lambda mb: _loss_g(
-                c, state, mb, generator, update_w_avg=True, keep=keep), batch)
         w_avg = state.g.mapping.w_avg
-        start, moved = w_avg.clone(), []
+        if a == 1:
+            metrics = update(state.g_opt, state.g, lambda mb: _loss_g(
+                c, state, mb, generator, update_w_avg=True, keep=keep), batch)
+        else:
+            start, moved = w_avg.clone(), []
 
-        def loss_fn(mb):
-            w_avg.copy_(start)
-            out = _loss_g(c, state, mb, generator, update_w_avg=True)
-            moved.append(w_avg.clone())
-            return out
+            def loss_fn(mb):
+                w_avg.copy_(start)
+                out = _loss_g(c, state, mb, generator, update_w_avg=True)
+                moved.append(w_avg.clone())
+                return out
 
-        metrics = update(state.g_opt, state.g, loss_fn, batch)
-        w_avg.copy_(torch.stack(moved).sum(0) / a)
+            metrics = update(state.g_opt, state.g, loss_fn, batch)
+            w_avg.copy_(torch.stack(moved).sum(0) / a)
+        if tdist.grouped():
+            with torch.no_grad():
+                w_avg.copy_(tdist.all_reduce_mean(w_avg))
         return metrics
 
     def main_step(state, batch, generator, do_pl, pl_noise):

@@ -339,8 +339,7 @@ def test_cli_config_follows_the_jax_cli():
 
 @pytest.mark.parametrize("flag,value,name", [
     ("--metrics", "fid", "--metrics"), ("--tryon-grid", "3", "--tryon-grid"),
-    ("--trace", "dir", "--trace"), ("--devices", "2", "data_axis_size"),
-    ("--gpus", "4", "data_axis_size")])
+    ("--trace", "dir", "--trace")])
 def test_cli_deferred_flags_raise_by_name(flag, value, name, tmp_path):
     with pytest.raises(NotImplementedError, match=name):
         cli.main(["--outdir", str(tmp_path), "--data", "d", flag, value,
@@ -369,8 +368,65 @@ def test_cli_ported_flags_are_accepted(flag, value, want, tmp_path):
         assert opts[k] == v == getattr(ref, k), k
 
 
+@pytest.mark.parametrize("flag,n", [("--devices", 2), ("--gpus", 4)])
+def test_cli_devices_set_the_ranks(flag, n, tmp_path):
+    """--devices N (--gpus N) asks for N ranks over the global --batch; the
+    run directory says so, as the JAX CLI's does."""
+    from pasta_tpu.cli import train as jcli
+    argv = ["--outdir", str(tmp_path), "--data", "d", flag, str(n)]
+    cli.main(argv + ["--dry-run"])
+    (run,) = os.listdir(tmp_path)
+    assert run.endswith(f"-fashion-b32-d{n}")
+    opts = json.load(open(os.path.join(tmp_path, run,
+                                       "training_options.json")))
+    ref = jcli.build_config(jcli.parse_args(argv))
+    assert opts["data_axis_size"] == ref.data_axis_size == n
+    assert opts["batch_size"] == ref.batch_size == 32
+
+
+@pytest.mark.parametrize("argv", [
+    ["--devices", "3"], ["--devices", "2", "--batch", "5"],
+    ["--coordinator", "h:1", "--num-processes", "3", "--process-id", "0"]])
+def test_cli_batch_that_does_not_divide_raises(argv, tmp_path):
+    with pytest.raises(ValueError, match="data_axis_size"):
+        cli.main(["--outdir", str(tmp_path), "--data", "d", "--dry-run"]
+                 + argv)
+    assert os.listdir(tmp_path) == []
+
+
+def test_cli_devices_need_as_many_cards(tmp_path, monkeypatch):
+    """--devices N on the card with fewer than N cards refuses before it
+    starts anything: no rank is carried on the CPU, none dropped."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="--devices 2"):
+        cli.main(["--outdir", str(tmp_path), "--data", "d", "--devices",
+                  "2"])
+    assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("argv", [
+    ["--coordinator", "h:1"],
+    ["--coordinator", "h:1", "--num-processes", "2", "--process-id", "2"],
+    ["--coordinator", "h:1", "--num-processes", "2", "--process-id", "0",
+     "--devices", "2"]])
+def test_cli_coordinator_needs_its_flags(argv):
+    with pytest.raises(ValueError, match="--"):
+        cli.build_config(cli.parse_args(["--outdir", "o", "--data", "d"]
+                                        + argv))
+
+
+def test_cli_coordinator_sets_the_ranks():
+    """--coordinator with P processes: P ranks, one card each (the JAX
+    CLI's multi-host flags)."""
+    cfg = cli.build_config(cli.parse_args([
+        "--outdir", "o", "--data", "d", "--coordinator", "h:1",
+        "--num-processes", "4", "--process-id", "3"]))
+    assert cfg.data_axis_size == 4 and cfg.batch_per_device == 8
+
+
 @pytest.mark.parametrize("flag", ["--step-mode", "--remat", "--ada-impl",
-                                  "--coordinator", "--d-remat"])
+                                  "--d-remat"])
 def test_cli_has_no_tpu_only_flags(flag):
     with pytest.raises(SystemExit):
         cli.parse_args(["--outdir", "o", "--data", "d", flag, "x"])

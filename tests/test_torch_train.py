@@ -242,12 +242,19 @@ def test_update_rule_on_identical_grads(setup):
                 rtol=0, atol=1e-7)
 
 
-@pytest.mark.parametrize("option,value", [("data_axis_size", 2)])
-def test_options_of_later_slices_raise(option, value):
-    """Options the port does not run yet refuse any value but the one it
-    runs (one GPU)."""
-    with pytest.raises(NotImplementedError, match=option):
-        pconfig.fashion_config(**{option: value})
+@pytest.mark.parametrize("ranks,batch", [(2, 32), (8, 32), (4, 16)])
+def test_data_axis_size_is_accepted(ranks, batch):
+    """More than one GPU: the config carries the ranks and each rank's
+    rows, as the JAX config's batch_per_device."""
+    cfg = pconfig.fashion_config(data_axis_size=ranks, batch_size=batch)
+    ref = jconfig.TrainConfig(data_axis_size=ranks, batch_size=batch)
+    assert cfg.batch_per_device == ref.batch_per_device == batch // ranks
+
+
+@pytest.mark.parametrize("ranks,batch", [(3, 32), (8, 4), (0, 4)])
+def test_batch_that_does_not_divide_raises(ranks, batch):
+    with pytest.raises(ValueError, match="data_axis_size"):
+        pconfig.fashion_config(data_axis_size=ranks, batch_size=batch)
 
 
 @pytest.mark.parametrize("option,value", [
