@@ -2,6 +2,7 @@
 
 Drives pasta_tpu_torch's main paths on the card -- 512px try-on serving
 (TryonPipeline.run_batch, fashion Generator config, num_bf16_res=3), the
+try-on inference run through cli/test.py (both pipelines, run_stream), the
 512px training step of the fashion preset (batch 4, G/D/DP phases, lazy R1,
 EMA, ADA), a training run through the command line (dataset files on
 disk, both loaders, the loop, snapshots, an exact resume) and the training
@@ -92,6 +93,22 @@ inputs, in phases:
                     global batch, each phase's all-reduce ms, peak GiB and
                     launches per rank (one card's, exactly); on one card a
                     line says that (iii) needs more
+ 14. inference   -- the try-on run as users start it: whether the native
+                    plugin built (else its build error); a synthetic root
+                    of 16 persons with a test_pairs.txt of 16 pairs;
+                    cli.test.main at batch 8 with --pipeline parity (fp32),
+                    --pipeline serving --g-bf16-res 3 and --pipeline
+                    serving in fp32: one composite PNG per pair of its
+                    size, finite outputs, K1's launches (26 a batch, all
+                    fp32 where the generator is), serving in fp32 against
+                    parity within the serving budget (bf16 serving's gap
+                    printed); every K1 shape those runs launched against
+                    plain with times, bound and cuDNN's (fp32 also at N =
+                    1); run_stream over 32 pairs against run_batch on the
+                    same items, bit for bit, img/s of each and of
+                    run_stream with 1, 2 and 4 prep threads; host prep
+                    pairs/s at 1 and 8 threads with the plugin and
+                    without; cli/bench.py's JSON line
 
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; the one
@@ -319,8 +336,6 @@ def phase_build(k1, shift):
 def phase_kernel(k1, batch):
     """K1 vs conv3x3_valid_plain in bf16 at the serving path's shapes, and
     its fp32 kernel at two ragged shapes."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     F = torch.nn.functional
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -515,8 +530,6 @@ def phase_kernel_train(k1, shift):
     """K2/K3 at the training path's shapes, the probes' shapes, and K1's
     forward and input gradient at the training shapes, each against its
     plain version."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     rows = {"K2": [], "K3": [], "K1": []}
@@ -761,8 +774,6 @@ def phase_train(k1):
     from pasta_tpu_torch.train.config import fashion_config
     from pasta_tpu_torch.train.steps import fetch_metrics
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = fashion_config(batch_size=TRAIN_BATCH)
     t0 = time.perf_counter()
     state, step, batch, gen = bench_train.setup(cfg, "cuda")
@@ -1114,7 +1125,6 @@ def phase_options_kernels(k1, shift, shapes, dev="cuda"):
     plain version at phase 6's budget: K1 (either dtype and pad) on random
     inputs of that shape, K2/K3 on random rows with the path's own q.
     Returns the largest error of each kernel."""
-    torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(5)
     worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
     share = dict.fromkeys(worst, 0.0)
@@ -1851,8 +1861,255 @@ def phase_dist(dev="cuda"):
     return launched, results
 
 
+N_INFER = 16           # persons of phase 14's synthetic root and its pairs
+N_STREAM = 32          # pairs of the run_stream check (the 16 twice)
+# cli.test with --g-bf16-res 3 against the fp32 parity run: at most this
+# share of values beyond 1e-2 of the range and this mean over the range;
+# 1.4x and 1.5x the reading on an H100 (10.712%, 4.97e-3 of the range).
+BF16_GAP = (0.15, 7.5e-3)
+
+
+def _composites(outdir, pairs):
+    """The composites cli.test wrote: one PNG per pair, each [clothes |
+    person | generated] of 320 columns, 512 rows."""
+    import cv2
+
+    names = sorted(os.listdir(outdir))
+    want = sorted(f"{p[:-4]}___{c[:-4]}.png" for p, c in pairs)
+    check(names == want, f"cli.test wrote {len(names)} files, not one PNG "
+          f"per pair ({len(want)})")
+    for name in names:
+        img = cv2.imread(os.path.join(outdir, name))
+        check(img is not None and img.shape == (512, 960, 3),
+              f"composite {name}: {None if img is None else img.shape}")
+    return len(names)
+
+
+def _cli_test_run(k1, shift, shapes, argv, dev):
+    """cli.test.main on `argv`: the generator's finetune outputs (every
+    batch's, through a subclass put in place of models.Generator), K1's
+    launches and fp32 launches from 0, host seconds."""
+    from pasta_tpu_torch import models
+    from pasta_tpu_torch.cli import test as cli_test
+
+    outs = []
+    generator = models.Generator
+
+    class Recorded(generator):
+        def forward(self, *args, **kw):
+            res = super().forward(*args, **kw)
+            outs.append(res[1].float().cpu())
+            return res
+
+    models.Generator = Recorded
+    k1.conv3x3_valid.launches = k1.conv3x3_valid.launches_fp32 = 0
+    t0 = time.perf_counter()
+    try:
+        with _path_shapes(k1, shift, shapes):
+            cli_test.main(argv + ["--device", dev])
+        _sync(dev)
+    finally:
+        models.Generator = generator
+    return (torch.cat(outs), k1.conv3x3_valid.launches,
+            k1.conv3x3_valid.launches_fp32, time.perf_counter() - t0)
+
+
+def _budget(a, b):
+    """(share of values off by more than 1e-2 of b's range, mean |a - b|
+    over the range): the serving parity budget is 2e-2 and 1e-3."""
+    span = float(b.max() - b.min())
+    diff = (a - b).abs()
+    return float((diff > 1e-2 * span).float().mean()), float(diff.mean()) / span
+
+
+def _k1_rows(k1, shapes, dev, tag):
+    """Each K1 shape in `shapes` against plain on random inputs (fp32 1e-5,
+    bf16 2^-7 of the output scale), K1 and plain timed in turns, cuDNN's
+    F.conv2d on the same input, the bound. Returns phase 3's rows."""
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for xs, ws, dtype, out_w, pad in sorted(shapes, key=str):
+        x = torch.randn(xs, device=dev, generator=g).to(dtype)
+        w = (torch.randn(ws, device=dev, generator=g)
+             / (9 * xs[3]) ** 0.5).to(dtype)
+        got = k1._kernel(x, w, out_w, pad)
+        ref = k1.conv3x3_valid_plain(x.float(), w.float(), out_w, pad)
+        err = (got.float() - ref).abs().max().item()
+        bound = _bound(ref, dtype)
+        check(got.shape == ref.shape and err <= bound,
+              f"{tag} K1 {list(xs)}->{ws[3]} {dtype} out_w {out_w}: err "
+              f"{err} > bound {bound}")
+        t_k1 = t_plain = t_lib = float("nan")
+        if torch.device(dev).type == "cuda":
+            t_k1, t_plain = turns(
+                lambda: k1.conv3x3_valid_plain(x, w, out_w, pad),
+                lambda: k1._kernel(x, w, out_w, pad), 5)
+            xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+            t_lib = cuda_ms(lambda: F.conv2d(xn, wn), 5)
+        ho, wo = got.shape[1], got.shape[2]
+        t_bound, by, flop = conv_bound(xs[0], ho, wo, xs[3], ws[3], dtype,
+                                       x.numel(), got.numel())
+        print(f"[inference] {tag} K1 {str(dtype)[6:]} {list(xs)}->{ws[3]} "
+              f"out_w {out_w}: max_abs_err {err:.3g} (bound {bound:.3g}) | "
+              f"K1 {t_k1:.4f} ms ({flop / t_k1 / 1e9:.1f} TFLOP/s) | plain "
+              f"{t_plain:.4f} | cuDNN {t_lib:.4f} | bound {t_bound:.4f} "
+              f"({by}, {100 * t_bound / t_k1:.1f}%)", flush=True)
+        rows.append(row(err, t_k1, t_plain, t_bound, by, t_lib, dtype))
+        del x, w, got, ref
+    _free(dev)
+    return rows
+
+
+def _prep_rates(pipe, root, pairs, native):
+    """Host prep pairs/s with 1 and 8 threads, the plugin as it built and
+    with its available() patched to False (cv2 / PIL)."""
+    from pasta_tpu_torch.cli import bench
+
+    rates = {}
+    built = native.available
+    for plugin in ((True, False) if built() else (False,)):
+        native.available = built if plugin else (lambda: False)
+        try:
+            for threads in (1, 8):
+                rates[(plugin, threads)] = bench.host_throughput(
+                    pipe, root, pairs, num_workers=threads, reps=1)
+        finally:
+            native.available = built
+    return rates
+
+
+def phase_inference(k1, shift, dev="cuda"):
+    """The try-on inference run (cli/test.py, data/testsets.py,
+    TryonPipeline.run_stream, native/, cli/bench.py) on a synthetic root
+    of N_INFER persons with a test_pairs.txt of as many pairs. Returns
+    (K1 launches of the cli.test runs, their fp32 share, the rows of every
+    K1 shape they launched)."""
+    from pasta_tpu_torch import native
+    from pasta_tpu_torch.cli import bench
+    from pasta_tpu_torch.data.synthetic import write_tryon_root
+    from pasta_tpu_torch.models import Generator
+    from pasta_tpu_torch.serving import TryonPipeline
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    built = native.available()
+    print(f"[inference] native plugin (g++ -ljpeg -lpng): "
+          f"{'built' if built else 'not built: ' + str(native.build_error())}"
+          f" in {time.perf_counter() - t0:.2f} s", flush=True)
+    tmp = tempfile.mkdtemp(prefix="pasta_smoke_infer_")
+    try:
+        root = os.path.join(tmp, "root")
+        pairs = write_tryon_root(root, N_INFER)
+        shapes = {"K1": set(), "K2/K3": {}}
+        runs = {}
+        n_batches = -(-len(pairs) // BATCH)
+        for tag, extra in (("parity", ["--pipeline", "parity"]),
+                           ("serving", ["--pipeline", "serving",
+                                        "--g-bf16-res", "3"]),
+                           ("parity bf16", ["--pipeline", "parity",
+                                            "--g-bf16-res", "3"]),
+                           ("serving fp32", ["--pipeline", "serving"])):
+            outdir = os.path.join(tmp, tag.replace(" ", "_"))
+            argv = ["--dataroot", root, "--testtxt", "test_pairs.txt",
+                    "--testpart", "upper", "--batchsize", str(BATCH),
+                    "--outdir", outdir] + extra
+            out, launches, fp32, secs = _cli_test_run(k1, shift, shapes,
+                                                      argv, dev)
+            n = _composites(outdir, pairs)
+            check(tuple(out.shape) == (n_batches * BATCH, 512, 512, 3)
+                  and bool(torch.isfinite(out).all()),
+                  f"cli.test {tag}: outputs {tuple(out.shape)}, finite "
+                  f"{bool(torch.isfinite(out).all())}")
+            card = torch.device(dev).type == "cuda"
+            check(not card or launches == K1_PER_BATCH * n_batches,
+                  f"cli.test {tag}: K1 launches {launches} != "
+                  f"{K1_PER_BATCH} x {n_batches}")
+            in_fp32 = "--g-bf16-res" not in extra
+            check(not card or fp32 == (launches if in_fp32 else 0),
+                  f"cli.test {tag}: {fp32} of {launches} K1 launches took "
+                  f"the fp32 kernel (fp32 run: {in_fp32})")
+            runs[tag] = dict(out=out[:len(pairs)], launches=launches,
+                             fp32=fp32)
+            print(f"[inference] cli.test --pipeline {tag} --batchsize "
+                  f"{BATCH}: {n} composites, {secs:.1f} s "
+                  f"({n / secs:.2f} img/s with the model's build) | K1 "
+                  f"launches {launches} ({fp32} fp32) = {K1_PER_BATCH} x "
+                  f"{n_batches} batches", flush=True)
+        # The pipelines against each other in fp32, at the serving budget;
+        # the bf16 serving run against the fp32 reference at BF16_GAP. bf16
+        # in the top three resolutions moves the output more than the two
+        # pipelines' differences do, and amplifies those: the pairs at one
+        # precision in bf16, and bf16 against fp32 on the same inputs, are
+        # printed beside them.
+        held = {("serving fp32", "parity"): (2e-2, 1e-3),
+                ("serving", "parity"): BF16_GAP}
+        gaps = {}
+        for got, ref in (("serving fp32", "parity"), ("serving", "parity"),
+                         ("serving", "parity bf16"),
+                         ("serving", "serving fp32"),
+                         ("parity bf16", "parity")):
+            gaps[got, ref] = _budget(runs[got]["out"], runs[ref]["out"])
+            limit = held.get((got, ref))
+            print(f"[inference] {got} against {ref}: "
+                  f"{100 * gaps[got, ref][0]:.3f}% of values beyond 1e-2 of "
+                  f"the range, mean {gaps[got, ref][1]:.3g} of the range ("
+                  + (f"held: {100 * limit[0]:g}%, {limit[1]:g}" if limit
+                     else "printed") + ")", flush=True)
+        for (got, ref), (frac, mean) in held.items():
+            check(gaps[got, ref][0] <= frac and gaps[got, ref][1] <= mean,
+                  f"{got} against {ref}: {gaps[got, ref]} beyond "
+                  f"{(frac, mean)}")
+        launched = (sum(r["launches"] for r in runs.values()),
+                    sum(r["fp32"] for r in runs.values()))
+        k1_rows = _k1_rows(k1, shapes["K1"], dev, "path")
+        fp32_n8 = {s for s in shapes["K1"] if s[2] == torch.float32}
+        _k1_rows(k1, {((1,) + s[0][1:],) + s[1:] for s in fp32_n8}, dev,
+                 "batch 1")
+        del runs
+
+        # run_stream against run_batch on the same items, bit for bit (the
+        # rates come from cli.bench's measurements below)
+        model = Generator(seed=0, num_bf16_res=3).eval().to(dev)
+        pipe = TryonPipeline(model, mode="upper")
+        stream_pairs = (pairs * 2)[:N_STREAM]
+        streamed = list(pipe.run_stream(root, stream_pairs, BATCH))
+        batched = []
+        for i in range(0, len(stream_pairs), BATCH):
+            items = [pipe.prepare_pair(root, p)
+                     for p in stream_pairs[i:i + BATCH]]
+            batched.append(pipe.run_batch(items).float().cpu().numpy())
+        check([c for c, _ in streamed] == [stream_pairs[i:i + BATCH] for i
+                                           in range(0, N_STREAM, BATCH)],
+              "run_stream: chunks out of order")
+        same = all(np.array_equal(o, b) for (_, o), b in
+                   zip(streamed, batched))
+        check(same, "run_stream outputs differ from run_batch's")
+        rates = _prep_rates(pipe, root, pairs, native)
+        print(f"[inference] run_stream {N_STREAM} pairs at batch {BATCH}: "
+              f"bit-equal to run_batch on the same items | host prep "
+              "pairs/s (cli.bench.host_throughput) "
+              + ", ".join(f"{'plugin' if p else 'cv2/PIL'} {t} thread"
+                          f"{'s' if t > 1 else ''} {r:.2f}"
+                          for (p, t), r in rates.items()), flush=True)
+        del model, pipe
+        _free(dev)
+        if torch.device(dev).type == "cuda":
+            # run_stream's img/s: one pass over bench.STREAM_PAIRS pairs
+            print(json.dumps(bench.run(batch=BATCH, iters=10, dataroot=root,
+                                       also_batches=())), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[inference] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launched, k1_rows
+
+
 def main():
     smi = phase_device()
+    from pasta_tpu_torch.ops._build import pin_fp32_numerics
+
+    pin_fp32_numerics()
     from pasta_tpu_torch.ops import affine_warp as shift
     from pasta_tpu_torch.ops import conv3x3 as k1
 
@@ -1868,7 +2125,8 @@ def main():
     opt_errs = phase_options_kernels(k1, shift, opt_shapes)
     phase_options_check()
     dist_counts, _ = phase_dist()
-    k1_rows = rows + train_rows["K1"]
+    infer_counts, infer_rows = phase_inference(k1, shift)
+    k1_rows = rows + train_rows["K1"] + infer_rows
 
     def total(rs, key):
         return sum(r[key] for r in rs)
@@ -1895,14 +2153,15 @@ def main():
     # launches: each main path driven with the counts at 0 just before it
     # and read just after (serving, the bare training steps, the training
     # run through the command line and its run with the options, the
-    # options' steps, the data-parallel steps summed over their ranks),
-    # summed
+    # options' steps, the data-parallel steps summed over their ranks, the
+    # inference runs through cli.test), summed
     print(json.dumps({"kernels": [
         entry("conv3x3_valid", "pasta_tpu_torch/csrc/conv3x3.cu",
               "pasta_tpu/ops/pallas_conv.py:139",
               launches + k1_total + sum(run_counts[:2]) + sum(opt_run[:2])
-              + sum(opt_counts[:2]) + sum(dist_counts[:2]),
-              k1_rows, opt_errs["K1"], launches_serving=launches, launches_train=counts[0],
+              + sum(opt_counts[:2]) + sum(dist_counts[:2]) + infer_counts[0],
+              k1_rows, opt_errs["K1"], launches_serving=launches,
+              launches_train=counts[0],
               launches_dx=counts[1], launches_train_run=run_counts[0],
               launches_train_run_dx=run_counts[1],
               launches_train_fp32=n_fp32,
@@ -1913,6 +2172,9 @@ def main():
               launches_options_run=opt_run[0],
               launches_dist=dist_counts[0], launches_dist_dx=dist_counts[1],
               launches_options_run_dx=opt_run[1],
+              launches_inference=infer_counts[0],
+              launches_inference_fp32=infer_counts[1],
+              ms_inference=total(infer_rows, "ms"),
               ms_fp32=total(fp32, "ms"), ms_bf16=total(bf16, "ms"),
               bound_ms_fp32=total(fp32, "bound_ms"),
               bound_ms_bf16=total(bf16, "bound_ms"),

@@ -189,8 +189,6 @@ def _bench_rank(rank, world, opts, init_method, out):
 
     device = init_distributed(rank, world, init_method, "cuda")
     try:
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
         cfg = fashion_config(batch_size=opts["batch"] * world,
                              data_axis_size=world, resolution=opts["res"])
         res = rank_bench(cfg, opts["steps"], device, opts["use_vgg"])
@@ -529,9 +527,9 @@ def main(argv=None):
         print("bench_train: needs an NVIDIA GPU", file=sys.stderr)
         sys.exit(2)
     from pasta_tpu_torch.train.config import fashion_config
+    from pasta_tpu_torch.ops._build import pin_fp32_numerics
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    pin_fp32_numerics()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,

@@ -125,8 +125,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("profile_loop: no CUDA device", file=sys.stderr)
         return 1
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from pasta_tpu_torch.ops._build import pin_fp32_numerics
+
+    pin_fp32_numerics()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip(), flush=True)

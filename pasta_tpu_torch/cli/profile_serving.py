@@ -9,9 +9,16 @@ upper mode) and prints:
     ingest_device, assemble_inputs_device, Generator -- the CUDA-event
     time, median of REPEATS batches, for a tiled and a full-path batch,
     beside the batch's host wall time;
+  - TryonPipeline.run_stream over 512 pairs of a synthetic dataset root
+    (its 16 pairs cycled; batch 8), with 1, 2, 4 and 8 host prep threads,
+    through cli.bench.stream_throughput, untraced (before any trace runs
+    in the process);
   - a torch.profiler trace of one tiled run_batch: device busy time (union
     of kernel intervals) over the device span, the idle share, and kernel
-    time by kernel name.
+    time by kernel name;
+  - the same run_stream passes under a device-only trace: img/s, the
+    host's ms queueing a batch and the device's idle share over the run
+    (how far the overlap of host prep and device work reaches).
 
 Run from the repository root:  python3 -m pasta_tpu_torch.cli.profile_serving
 """
@@ -19,8 +26,10 @@ Run from the repository root:  python3 -m pasta_tpu_torch.cli.profile_serving
 from __future__ import annotations
 
 import collections
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -68,6 +77,66 @@ def _stages(pipe, items, tiled):
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)], wall * 1e3
 
 
+def _idle_share(prof):
+    """(device busy ms, device span ms, idle share) of a trace's kernels."""
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.time_range.elapsed_us() > 0]
+    if not kernels:
+        raise RuntimeError("profile_serving: the trace holds no device time")
+    intervals = [(e.time_range.start, e.time_range.end) for e in kernels]
+    span = max(e for _, e in intervals) - min(s for s, _ in intervals)
+    busy = busy_us(intervals)
+    return busy / 1e3, span / 1e3, 1 - busy / span, kernels
+
+
+def _stream(pipe, trace=None):
+    """run_stream over a synthetic root at 1, 2, 4 and 8 prep threads, each
+    measured by cli.bench.stream_throughput; with `trace` = (profile,
+    activities), under a trace, with the host's ms queueing a batch and
+    the device's idle share."""
+    from pasta_tpu_torch.cli import bench
+    from pasta_tpu_torch.data.synthetic import write_tryon_root
+
+    with tempfile.TemporaryDirectory(prefix="pasta_profile_") as tmp:
+        root = os.path.join(tmp, "root")
+        pairs = write_tryon_root(root, 16)
+        if trace is None:
+            for workers in (1, 2, 4, 8):
+                rate = bench.stream_throughput(pipe, root, pairs, BATCH,
+                                               num_workers=workers)
+                print(f"[stream] run_stream {bench.STREAM_PAIRS} pairs, "
+                      f"batch {BATCH}, {workers} prep threads, untraced: "
+                      f"{rate:.2f} img/s", flush=True)
+            return
+        run_batch, queued = pipe.run_batch, []
+
+        def timed(items):
+            t = time.perf_counter()
+            out = run_batch(items)
+            queued.append(time.perf_counter() - t)
+            return out
+
+        pipe.run_batch = timed          # run_stream calls self.run_batch
+        try:
+            for workers in (1, 2, 4, 8):
+                prof = trace[0](activities=trace[1])
+                queued.clear()
+                rate = bench.stream_throughput(pipe, root, pairs, BATCH,
+                                               num_workers=workers,
+                                               context=prof)
+                busy, span, idle, _ = _idle_share(prof)
+                print(f"[stream] run_stream {bench.STREAM_PAIRS} pairs, "
+                      f"batch {BATCH}, {workers} prep threads, traced: "
+                      f"{rate:.2f} img/s | "
+                      # queued[0]: the warm-up batch, before the trace
+                      f"{1e3 * np.mean(queued[1:]):.1f} ms a batch queueing "
+                      f"run_batch | device busy {busy:.1f} ms over a span of "
+                      f"{span:.1f} ms, idle share {idle:.3f}", flush=True)
+        finally:
+            del pipe.run_batch
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_serving: needs an NVIDIA GPU", file=sys.stderr)
@@ -78,7 +147,9 @@ def main():
     from pasta_tpu_torch.models import Generator
     from pasta_tpu_torch.ops import conv3x3
     from pasta_tpu_torch.serving import TryonPipeline
+    from pasta_tpu_torch.ops._build import pin_fp32_numerics
 
+    pin_fp32_numerics()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -109,6 +180,7 @@ def main():
               f"{np.median(walls):.2f} ms, all {[round(w, 1) for w in walls]}",
               flush=True)
 
+    _stream(pipe)                    # before any trace in this process
     pipe.run_batch(tiled_items)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -117,17 +189,10 @@ def main():
         pipe.run_batch(tiled_items)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.time_range.elapsed_us() > 0]
-    if not kernels:
-        raise RuntimeError("profile_serving: the trace holds no device time")
-    intervals = [(e.time_range.start, e.time_range.end) for e in kernels]
-    span = max(e for _, e in intervals) - min(s for s, _ in intervals)
-    busy = busy_us(intervals)
+    busy, span, idle, kernels = _idle_share(prof)
     print(f"[profile] tiled B={BATCH}: wall {wall:.1f} ms | device busy "
-          f"{busy / 1e3:.1f} ms over a device span of {span / 1e3:.1f} ms, "
-          f"idle share {1 - busy / span:.3f} | {len(kernels)} device events",
+          f"{busy:.1f} ms over a device span of {span:.1f} ms, "
+          f"idle share {idle:.3f} | {len(kernels)} device events",
           flush=True)
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:
@@ -139,6 +204,7 @@ def main():
                                 key=lambda kv: -kv[1][0])[:TOP_KERNELS]:
         print(f"{us / 1e3:9.2f} ms {100 * us / total:5.1f}% x{n:5d}  "
               f"{name[:110]}")
+    _stream(pipe, (profile, [ProfilerActivity.CUDA]))
 
 
 if __name__ == "__main__":

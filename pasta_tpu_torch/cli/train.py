@@ -227,6 +227,9 @@ def load_vgg_params(path, seed=0):
 
 
 def main(argv=None):
+    from ..ops._build import pin_fp32_numerics
+
+    numerics = pin_fp32_numerics()
     args = parse_args(argv)
     cfg = build_config(args)
 
@@ -249,8 +252,8 @@ def main(argv=None):
             args.outdir,
             f"{args.cfg}-b{cfg.batch_size}-d{cfg.data_axis_size}")
         with open(os.path.join(run_dir, "training_options.json"), "w") as f:
-            json.dump({**dataclasses.asdict(cfg), "args": vars(args)}, f,
-                      indent=2)
+            json.dump({**dataclasses.asdict(cfg), "args": vars(args),
+                       "numerics": numerics}, f, indent=2)
         print(f"run dir: {run_dir}")
         print(json.dumps(dataclasses.asdict(cfg), indent=2))
 

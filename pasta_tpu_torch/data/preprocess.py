@@ -1,25 +1,34 @@
 """Try-on preprocessing on the host: the record, its loader, the label
-routing and the patch normalization.
+routing, the patch normalization and the per-pair pipeline of the test
+modes.
 
-The port's own copy of what the serving path and the training loaders use
-from `pasta_tpu/data/preprocess.py`, unchanged in behaviour
-(tests/test_torch_host.py, test_torch_roots.py and test_torch_trainsets.py
-hold each name equal to its original): the decoded record of one image and
-`load_person` that reads it from a dataset root, the garment class masks
-and their count-based routing, the label LUT and its bounding box, the
-sleeve mask, the retain mask, the skin colour, `normalize_patches` (the cut
-and paste warps of the host loader, in cv2) and `flip_person`. Where the
-original can go through its compiled `native` plugin (`_warp`,
-`_erode_mask_255`, `_decode_label_plane`), the cv2 branch alone is here.
-`preprocess_pair` (the host-side conditioning of the test modes) is not
-here yet.
+The port's own copy of `pasta_tpu/data/preprocess.py`, unchanged in
+behaviour (tests/test_torch_host.py, test_torch_roots.py,
+test_torch_trainsets.py and test_torch_inference.py hold each name equal
+to its original): the decoded record of one image and `load_person` that
+reads it from a dataset root, the garment class masks and their
+count-based routing, the label LUT and its bounding box, the sleeve mask,
+the retain mask, the skin colour, `normalize_patches` (the cut and paste
+warps, in cv2 or the `native` plugin), `preprocess_pair` (the host-side
+conditioning of the test modes: the parity path of `cli/test.py`) and
+`flip_person`. Mode semantics:
+
+  mode='full'  -- both garments come from the clothes image; patches are cut
+                  with the clothes homographies and pasted with the person's.
+  mode='upper' -- upper garment from clothes; the person keeps their lower
+                  garment (cut/kept in person space).
+  mode='lower' -- lower garment from clothes; the person keeps their upper.
+
+Parsing planes decode through the `native` plugin's libpng where it is
+built (`_decode_label_plane`); `_warp` and `_erode_mask_255` take it only
+with PASTA_USE_NATIVE=1 in the environment, as the original does.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import cv2
 import numpy as np
@@ -62,14 +71,55 @@ def _pad_lr(arr, left, right, value):
     return out
 
 
+def _png_palette_blue(data):
+    """[256] uint8 blue components of a PNG's PLTE chunk, or None.
+
+    Chunk walk: 8-byte signature, then length/type/data/crc records."""
+    pos = 8
+    n = len(data)
+    while pos + 8 <= n:
+        length = int.from_bytes(data[pos:pos + 4], "big")
+        ctype = data[pos + 4:pos + 8]
+        if ctype == b"PLTE":
+            plte = np.frombuffer(
+                data[pos + 8:pos + 8 + length], np.uint8).reshape(-1, 3)
+            blue = np.zeros(256, np.uint8)
+            blue[:len(plte)] = plte[:, 2]
+            return blue
+        if ctype == b"IDAT":
+            return None                     # PLTE must precede IDAT
+        pos += 12 + length
+    return None
+
+
 def _decode_label_plane(root, rel):
-    """Parsing-map decode with cv2.imread-channel-0 semantics (the
-    reference reads parsing with cv2.imread and takes [:, :, 0]; a palette
-    file gives its palette-expanded blue channel). The original's faster
-    branch through the compiled libpng decoder belongs to the `native`
-    module and comes with it; this is its cv2 branch, which every file
-    takes there too when that module is not built."""
+    """Parsing-map decode with cv2.imread-channel-0 semantics.
+
+    PNGs of IHDR colour type 0 (grayscale, the common case), 2, 3 and 6 go
+    through the native libpng path when the plugin is built (a palette
+    index plane maps through the PLTE table to cv2's expanded blue
+    channel); anything else, and every file without the plugin, through
+    cv2 (the reference reads parsing with cv2.imread and takes [:, :, 0]).
+    """
     data = root.read(rel)
+    if len(data) > 25 and data[25] in (0, 2, 3, 6):
+        from .. import native
+        if native.available():
+            try:
+                plane = np.asarray(native.decode_image(data))
+                if plane.ndim == 2:
+                    if data[25] == 3:
+                        blue = _png_palette_blue(data)
+                        if blue is None:
+                            raise ValueError("no PLTE")
+                        plane = blue[plane]
+                    return plane[..., None]
+                if plane.shape[2] in (3, 4):
+                    # cv2.imread(COLOR) yields BGR (alpha dropped); its
+                    # channel 0 is the RGB blue channel
+                    return plane[..., 2:3]
+            except ValueError:
+                pass
     img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
     return None if img is None else img[..., 0:1]
 
@@ -277,12 +327,31 @@ def retain_mask_of(record):
 # patch normalization / denormalization
 
 
+_USE_NATIVE = os.environ.get("PASTA_USE_NATIVE", "0") == "1"
+
+
 def _warp(img, m, size):
+    if _USE_NATIVE:
+        from .. import native
+
+        if native.available():
+            return native.warp_perspective_batch(
+                np.ascontiguousarray(img, np.uint8)[None],
+                np.linalg.inv(np.asarray(m, np.float64))[None],
+                size[1], size[0], num_threads=1)[0]
     return cv2.warpPerspective(img, m, size, borderMode=cv2.BORDER_CONSTANT)
 
 
 def _erode_mask_255(mask_img, k):
     """Erode a {0,255} mask image and threshold back to {0,1} uint8."""
+    if _USE_NATIVE:
+        from .. import native
+
+        if native.available():
+            m = np.ascontiguousarray(mask_img, np.uint8)
+            chan = m[..., 0] if m.ndim == 3 else m
+            eroded = native.erode_batch(chan[None], k, num_threads=1)[0]
+            return (eroded[..., np.newaxis] == 255).astype(np.uint8)
     eroded = cv2.erode(mask_img, np.ones((k, k), np.uint8), iterations=1)
     if eroded.ndim == 2:
         eroded = eroded[..., np.newaxis]
@@ -460,6 +529,149 @@ def normalize_patches(
         out["Ms"] = np.concatenate(ms, axis=0)
         out["M_invs"] = np.concatenate(m_invs, axis=0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# full per-pair pipeline (test modes)
+
+
+def preprocess_pair(person: PersonRecord, clothes: PersonRecord, mode: str,
+                    use_sleeve_mask: bool = True) -> Dict[str, np.ndarray]:
+    """person + clothes records -> model-ready arrays for one try-on pair.
+
+    mode in {'full', 'upper', 'lower'}; see module docstring. Returns a dict
+    of HWC uint8/float arrays (unnormalized; batching/scaling happens in the
+    CLI/dataset layer).
+    """
+    assert mode in ("full", "upper", "lower")
+    person_cls = garment_class_masks(person.parsing)
+    clothes_cls = garment_class_masks(clothes.parsing)
+
+    if mode == "full":
+        upper_src, lower_src = clothes, clothes
+        upper_masks, lower_masks = clothes_cls, clothes_cls
+    elif mode == "upper":
+        upper_src, lower_src = clothes, person
+        upper_masks, lower_masks = clothes_cls, person_cls
+    else:
+        upper_src, lower_src = person, clothes
+        upper_masks, lower_masks = person_cls, clothes_cls
+
+    upper_mask = upper_masks["tops"] + upper_masks["dresses"]
+    lower_mask = lower_masks["skirt"] + lower_masks["pants"]
+
+    # Dress conflicts zero the other stream (dataset.py:2176-2184, lower
+    # variant equivalent).
+    dress_transfer = False
+    if mode == "upper" and clothes_cls["dresses"].sum() > 0:
+        lower_mask = lower_mask * 0
+        dress_transfer = True
+    if mode == "lower" and person_cls["dresses"].sum() > 0:
+        lower_mask = lower_mask * 0
+        dress_transfer = True
+
+    upper_img = upper_mask * upper_src.image
+    lower_img = lower_mask * lower_src.image
+    upper_mask_rgb = np.repeat(upper_mask, 3, axis=2) * 255
+    lower_mask_rgb = np.repeat(lower_mask, 3, axis=2) * 255
+
+    sleeve_src = person if mode == "lower" else clothes
+    sleeve = sleeve_mask_from(sleeve_src) if use_sleeve_mask else None
+
+    norm = normalize_patches(
+        upper_img, lower_img, upper_mask_rgb, lower_mask_rgb, sleeve,
+        upper_cut_kps=upper_src.keypoints,
+        lower_cut_kps=lower_src.keypoints,
+        paste_kps=person.keypoints,
+        erode_k=8 if mode == "upper" else 5,
+        track_wo_sleeve=(mode == "upper"),
+        zero_lower_under_upper=(mode in ("upper", "lower")),
+    )
+    denorm_upper = norm["denorm_upper_img"]
+    denorm_lower = norm["denorm_lower_img"]
+
+    # Kept-garment streams bypass the warp round-trip: the garment is already
+    # on the person (dataset.py:2213-2216 upper / lower-variant :238-241).
+    if mode == "upper":
+        kept = _erode_mask_255(lower_mask_rgb, 8)
+        denorm_lower = lower_img * kept
+    if mode == "lower":
+        kept = _erode_mask_255(upper_mask_rgb, 8)
+        denorm_upper = upper_img * kept
+
+    # Conditioning bound map for the lower garment.
+    bound = np.zeros_like(lower_mask[..., 0:1], np.uint8)
+    if mode == "upper":
+        lower_bbox = mask_to_bbox(lower_mask.copy())
+        lhip, rhip = person.keypoints[11], person.keypoints[8]
+        ub = None
+        if lhip[2] > 0.05 and rhip[2] > 0.05:
+            hip_width = np.linalg.norm(lhip[0:2] - rhip[0:2])
+            middle_y = (lhip[1] + rhip[1]) / 2
+            ub = int(middle_y - (3 * hip_width / 4))
+            if lower_bbox is not None:
+                ub = min(ub, lower_bbox[1])
+        elif lower_bbox is not None:
+            ub = lower_bbox[1]
+        if ub is not None and not dress_transfer:
+            bound[ub:, ...] += 255
+        # Cut the bound above the transferred upper garment's bottom.
+        wo_sleeve_mask = (
+            norm["denorm_upper_img_wo_sleeve"].sum(axis=2, keepdims=True) > 0
+        ).astype(np.uint8)
+        upper_bbox = mask_to_bbox(wo_sleeve_mask)
+        if upper_bbox is not None:
+            bound[0:upper_bbox[3], ...] *= 0
+    elif mode == "lower":
+        lower_bbox = mask_to_bbox((person_cls["skirt"] + person_cls["pants"]).copy())
+        if lower_bbox is not None:
+            bound[lower_bbox[1]:, ...] += 255
+    else:  # full
+        denorm_lower_mask = (
+            denorm_lower.sum(axis=2, keepdims=True) > 0).astype(np.uint8)
+        lower_bbox = mask_to_bbox(denorm_lower_mask)
+        if lower_bbox is not None and not (
+                mode == "full" and clothes_cls["dresses"].sum() > 0):
+            bound[lower_bbox[1]:, ...] += 255
+
+    # Lower-garment class label map: pants 0, skirt 1/2, dress 1 (x255).
+    label = np.ones_like(lower_mask)
+    if mode == "upper":
+        pants, skirt = person_cls["pants"], person_cls["skirt"]
+        dress = clothes_cls["dresses"]
+        if dress_transfer:
+            pants, skirt = pants * 0, skirt * 0
+    elif mode == "lower":
+        pants, skirt = clothes_cls["pants"], clothes_cls["skirt"]
+        dress = person_cls["dresses"]
+        if dress_transfer:
+            pants, skirt = pants * 0, skirt * 0
+    else:
+        pants, skirt = clothes_cls["pants"], clothes_cls["skirt"]
+        dress = clothes_cls["dresses"]
+    if pants.sum() > 0:
+        label = label * 0
+    elif skirt.sum() > 0:
+        label = label * 1
+    elif dress.sum() > 0:
+        label = label * 2
+    label = label / 2.0 * 255
+
+    return dict(
+        image=person.image,
+        clothes=clothes.image,
+        pose=person.pose_img,
+        norm_img=norm["norm_img"],
+        norm_img_lower=norm["norm_img_lower"],
+        denorm_upper_img=denorm_upper,
+        denorm_lower_img=denorm_lower,
+        retain_mask=retain_mask_of(person),
+        skin_average=skin_average_map(person.image, person.parsing),
+        lower_label_map=label.astype(np.float64),
+        lower_bound=bound.astype(np.float64),
+        person_name=person.name,
+        clothes_name=clothes.name,
+    )
 
 
 def flip_person(record: PersonRecord) -> PersonRecord:

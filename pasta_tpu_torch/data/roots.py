@@ -2,8 +2,8 @@
 
 The port's own copy of `pasta_tpu/data/roots.py` (tests/test_torch_roots.py
 holds it equal to the original on a root written to disk). `decode_image`
-has the PIL branch only: the branch through the compiled libjpeg/libpng
-decoder belongs to the `native` module and comes with it.
+goes through the `native` plugin's libjpeg/libpng decoder where it is
+built, through PIL otherwise.
 
 The reference's ImageFolderDataset transparently reads either a directory
 tree or a zip archive (training/dataset.py:189-399, `_file_ext` /
@@ -84,11 +84,22 @@ class DataRoot:
         return io.BytesIO(self.read(rel))
 
     def decode_image(self, rel: str) -> np.ndarray:
-        """Decode an image entry to an RGB/gray uint8 array with PIL
-        (palette files give their index plane)."""
+        """Decode an image entry to an RGB/gray uint8 array.
+
+        Uses the native libjpeg/libpng plugin when available (PIL-matching
+        semantics incl. palette-index planes; decodes with the interpreter
+        lock released), PIL otherwise."""
+        from .. import native
+
+        data = self.read(rel)
+        if native.available():
+            try:
+                return native.decode_image(data)
+            except ValueError:
+                pass  # exotic format: PIL
         import PIL.Image
 
-        return np.array(PIL.Image.open(io.BytesIO(self.read(rel))))
+        return np.array(PIL.Image.open(io.BytesIO(data)))
 
     def decode_cv2(self, rel: str, flags=None) -> np.ndarray:
         """cv2.imread-equivalent decode (BGR, palette-expanded)."""

@@ -10,7 +10,8 @@ padded to 512x512, `pose_params` from `data.host.pose_device_params`).
 
 `write_dataset_root` writes such records as the files of a dataset root
 (directory or zip), so that the training loaders, which read files, have
-something to read where no dataset can be fetched.
+something to read where no dataset can be fetched; `write_tryon_root`
+adds the test_pairs.txt that the inference run reads.
 """
 
 from __future__ import annotations
@@ -190,3 +191,14 @@ def write_dataset_root(path, n, seed, as_zip=False):
         if zf is not None:
             zf.close()
     return sorted(m["name"] for m in manifest)
+
+
+def write_tryon_root(path, n, seed=0):
+    """`write_dataset_root(path, n, seed)` and a test_pairs.txt in it that
+    pairs each person with the next one's garment (the reference's
+    `<clothes> <person>` lines). Returns the (person, clothes) pairs."""
+    names = write_dataset_root(path, n, seed)
+    pairs = [(name, names[(i + 1) % n]) for i, name in enumerate(names)]
+    with open(os.path.join(path, "test_pairs.txt"), "w") as f:
+        f.write("".join(f"{c} {p}\n" for p, c in pairs))
+    return pairs

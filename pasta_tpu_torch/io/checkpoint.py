@@ -54,3 +54,12 @@ def load_checkpoint(path, state):
                                  dtype=torch.float32,
                                  device=state.pl_mean.device)
     return state
+
+
+def load_module(path, name):
+    """The state dict of one module (`name` in "g", "d", "dp", "g_ema") of
+    a file of `save_checkpoint`, in host memory: an inference run loads
+    the G-EMA alone."""
+    if name not in _MODULES:
+        raise ValueError(f"module {name!r}: not one of {_MODULES}")
+    return torch.load(path, map_location="cpu", weights_only=True)[name]

@@ -10,6 +10,10 @@ In a process group (train/entry.py), the first rank of each host builds a
 missing library while the host's other ranks wait at a barrier, and then
 every rank loads it: each rank reaches its first launch of a library at
 the same point of the step, so each passes that barrier once a library.
+
+`pin_fp32_numerics` is the one place that sets how a process of the port
+computes fp32 convolutions and matrix products; every entry point calls it
+first, and `train/entry.py::spawn` calls it in each rank it starts.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import subprocess
 import threading
 import time
 
+import torch
 import torch.distributed as dist
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,6 +37,19 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs = {}
 _lock = threading.Lock()
+
+
+def pin_fp32_numerics():
+    """Full fp32 products for fp32 convolutions and matrix products in this
+    process: TF32 off in cuDNN and in cuBLAS (PyTorch's default leaves
+    cuDNN's on). The JAX package's CLI calls fp32 the reference inference
+    numerics, and the reference's StyleGAN2-ADA training loop turns TF32
+    off too. The flags belong to the process; a spawned rank sets its own.
+    Returns the two flags as a run records them."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return dict(cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
 
 def _nvcc():

@@ -1,12 +1,14 @@
 """End-to-end try-on serving on one GPU: device preprocessing + generator
-(port of pasta_tpu/serving.py, cond="device", gather warps).
+(port of pasta_tpu/serving.py, gather warps).
 
 The host does decode / keypoint parsing / label routing / homography solves
-(numpy, data/host.py); everything else -- person conditioning rasters,
-patch warps, erosion, compositing, sleeve mirroring, conflict zeroing,
-input assembly and the generator forward -- runs as torch ops on the
-device. The two-stage API of the JAX package (ingest_device, then
-assemble_inputs_device) is kept; its TPU layout reason does not apply.
+(numpy, data/host.py); everything else -- person conditioning rasters
+(with cond="device"), patch warps, erosion, compositing, sleeve
+mirroring, conflict zeroing, input assembly and the generator forward --
+runs as torch ops on the device. The two-stage API of the JAX package
+(ingest_device, then assemble_inputs_device) is kept; its TPU layout
+reason does not apply. `TryonPipeline.run_stream` overlaps the host prep
+of later batches with the device's work on the current one.
 """
 
 from __future__ import annotations
@@ -155,31 +157,112 @@ def assemble_inputs_device(host: Dict[str, torch.Tensor], mode: str,
     )
 
 
+class NoiseSeeds:
+    """The synthesis noise of noise_mode="random", one draw a batch: a host
+    generator seeded with `seed` gives each batch a seed, and a generator on
+    `device` is reseeded with it, so that batch k gets the same noise
+    however many draws batch k - 1 made (the JAX package splits its noise
+    key once a batch)."""
+
+    def __init__(self, seed, device):
+        self._seeds = torch.Generator().manual_seed(seed)
+        self._noise = torch.Generator(device=device)
+
+    def next(self):
+        """The generator for the next batch."""
+        sub = int(torch.randint(2 ** 62, (), generator=self._seeds))
+        return self._noise.manual_seed(sub)
+
+
 class TryonPipeline:
-    """Batched serving on one device: host_prepare(cond="device") ->
-    ingest_device -> assemble_inputs_device -> Generator, with the gather
-    warps (the JAX package's warp_impl="auto" off the TPU) and
-    noise_mode="const".
+    """Batched serving on one device: host_prepare -> ingest_device ->
+    assemble_inputs_device -> Generator, with the gather warps (the JAX
+    package's warp_impl="auto" off the TPU).
 
     `model` is the port's Generator with its weights loaded, on the device
-    that serves. cond="host", the matmul warps, random noise, `mesh=` and
-    `run_stream` of the JAX pipeline are not ported yet.
+    that serves. `cond` is "device" (the person conditioning computed in
+    ingest_device; the port's serving default) or "host" (host_prepare
+    rasters it; the JAX pipeline's default). `noise_mode` is "const",
+    "random" or "none"; "random" draws the synthesis noise on the model's
+    device, one seed a batch from `seed` (NoiseSeeds). The matmul warps
+    and `mesh=` of the JAX pipeline are not ported (ROADMAP queue 1).
     """
 
-    def __init__(self, model, mode="upper"):
+    def __init__(self, model, mode="upper", noise_mode="const",
+                 warp_impl="auto", cond="device", mesh=None, seed=0):
+        if warp_impl not in ("auto", "gather"):
+            raise NotImplementedError(
+                f"TryonPipeline(warp_impl={warp_impl!r}): the matmul warps "
+                "(pasta_tpu/ops/projective_warp.py) are not ported "
+                "(ROADMAP queue 1 item 9); the gather warps are 'auto'")
+        if mesh is not None:
+            raise NotImplementedError(
+                "TryonPipeline(mesh=...): a batch split over cards is not "
+                "ported (ROADMAP queue 1 item 8)")
+        if noise_mode not in ("const", "random", "none"):
+            raise ValueError(f"noise_mode {noise_mode!r}")
+        if cond not in ("device", "host"):
+            raise ValueError(f"cond {cond!r}")
         self.model = model
         self.mode = mode
+        self.noise_mode = noise_mode
+        self.cond = cond
         self.device = next(model.parameters()).device
+        self._noise = NoiseSeeds(seed, self.device)
         self.last_tiled = None
 
     def prepare(self, person, clothes, use_sleeve_mask=True):
         return host_prepare(person, clothes, self.mode, use_sleeve_mask,
-                            cond="device")
+                            cond=self.cond)
+
+    def prepare_pair(self, root, pair, use_sleeve_mask=True,
+                     with_images=False):
+        """The host stage of one (person_name, clothes_name) pair of a
+        data root, as run_stream runs it on its threads: decode, then
+        host_prepare. The garment parsing (the sleeve mask's source) is
+        read for the person in lower mode, for the clothes otherwise.
+        With `with_images`, returns (item, the person's and the clothes'
+        padded square images), which a caller composites from."""
+        from .data import preprocess as pp
+
+        pn, cn = pair
+        sleeve_for = "person" if self.mode == "lower" else "clothes"
+        person = pp.load_person(
+            root, pn,
+            pose_raster="device" if self.cond == "device" else "host",
+            with_garment_parsing=(use_sleeve_mask
+                                  and sleeve_for == "person"))
+        # host_prepare never reads the clothes pose image
+        clothes = pp.load_person(
+            root, cn, pose_raster="device",
+            with_garment_parsing=(use_sleeve_mask
+                                  and sleeve_for == "clothes"))
+        item = self.prepare(person, clothes, use_sleeve_mask)
+        return (item, person.image, clothes.image) if with_images else item
+
+    def _upload(self, host_items):
+        """Stack each array of the items and copy it to the device. On a
+        card the stack is written into pinned host memory and copied
+        without blocking the host (PyTorch's pinned-memory cache keeps
+        the block until its copy is done)."""
+        pin = self.device.type == "cuda"
+        batch = {}
+        for k in host_items[0]:
+            if k in ("tiles_fit", "cut_fits"):
+                continue
+            arrs = [np.asarray(it[k]) for it in host_items]
+            dtype = torch.from_numpy(np.empty(0, arrs[0].dtype)).dtype
+            host = torch.empty((len(arrs),) + arrs[0].shape, dtype=dtype,
+                               pin_memory=pin)
+            np.stack(arrs, out=host.numpy())
+            batch[k] = host.to(self.device, non_blocking=pin)
+        return batch
 
     @torch.inference_mode()
     def run_batch(self, host_items):
-        """host_prepare dicts -> finetune images [B, H, W, 3] fp32 on the
-        device. Takes the tiled paste path when every item's quads fit.
+        """host_prepare dicts -> finetune images [B, H, W, 3] on the device
+        (queued, not waited for). Takes the tiled paste path when every
+        item's quads fit.
 
         The JAX pipeline also selects cut windows when every item's cut
         quads fit (`cut_fits`); the windows feed only its matmul warps, and
@@ -187,12 +270,89 @@ class TryonPipeline:
         """
         tiled = all(bool(it["tiles_fit"]) for it in host_items)
         self.last_tiled = tiled
-        batch = {
-            k: torch.from_numpy(np.stack([it[k] for it in host_items])).to(
-                self.device)
-            for k in host_items[0] if k not in ("tiles_fit", "cut_fits")
-        }
-        inputs = assemble_inputs_device(ingest_device(batch), self.mode,
-                                        tiled=tiled)
-        _, finetune, _ = self.model(noise_mode="const", **inputs)
+        inputs = assemble_inputs_device(
+            ingest_device(self._upload(host_items)), self.mode, tiled=tiled)
+        generator = (self._noise.next() if self.noise_mode == "random"
+                     else None)
+        _, finetune, _ = self.model(noise_mode=self.noise_mode,
+                                    generator=generator, **inputs)
         return finetune
+
+    def run_stream(self, root, pairs, batch_size=8, use_sleeve_mask=True,
+                   num_workers=8, prefetch=2, with_images=False):
+        """Overlapped serving over (person_name, clothes_name) pairs of a
+        data root (directory, .zip or DataRoot).
+
+        Host prep (decode + host_prepare) of the next `prefetch` batches
+        runs on `num_workers` threads while the device runs the current
+        batch. Each batch's upload and launches are queued without a wait
+        (pinned staging, see `_upload`), its output is copied into pinned
+        host memory behind them, and the host waits for that copy only
+        after it has queued the next batch: the output comes one batch
+        late. Yields (pairs_chunk, outputs [len(chunk), H, W, 3] float32
+        numpy) in order. The tail batch is padded to `batch_size` with
+        copies of its last item. With `with_images`, each yield also
+        carries the chunk's [(person image, clothes image)] that the prep
+        threads decoded (`prepare_pair`), so that a caller writing
+        composites decodes nothing again.
+        """
+        import collections
+        import concurrent.futures
+
+        from .data.roots import as_root
+
+        root = as_root(root)
+
+        def prep(pair):
+            return self.prepare_pair(root, pair, use_sleeve_mask,
+                                     with_images)
+
+        def fetch(out):
+            """Queue the copy of a batch's output to pinned host memory;
+            returns the host tensor and an event that marks its end."""
+            out = out.float()
+            pin = self.device.type == "cuda"
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=pin)
+            host.copy_(out, non_blocking=pin)
+            done = None
+            if pin:
+                done = torch.cuda.Event()
+                done.record()
+            return host, done
+
+        prefetch = max(1, prefetch)
+        pairs = list(pairs)
+        chunks = [pairs[i:i + batch_size]
+                  for i in range(0, len(pairs), batch_size)]
+        with concurrent.futures.ThreadPoolExecutor(num_workers) as pool:
+            inflight = collections.deque(
+                (c, [pool.submit(prep, p) for p in c])
+                for c in chunks[:prefetch])
+            next_chunk = prefetch
+            pending = None
+            while inflight:
+                chunk, futs = inflight.popleft()
+                items = [f.result() for f in futs]
+                images = None
+                if with_images:
+                    images = [(p, c) for _, p, c in items]
+                    items = [it for it, _, _ in items]
+                while len(items) < batch_size:
+                    items.append(items[-1])
+                out = fetch(self.run_batch(items))      # queued, no wait
+                if next_chunk < len(chunks):
+                    c = chunks[next_chunk]
+                    inflight.append((c, [pool.submit(prep, p) for p in c]))
+                    next_chunk += 1
+                if pending is not None:
+                    yield self._finish(*pending)
+                pending = (chunk, images, *out)
+            if pending is not None:
+                yield self._finish(*pending)
+
+    @staticmethod
+    def _finish(chunk, images, host, done):
+        if done is not None:
+            done.synchronize()
+        out = host.numpy()[:len(chunk)]
+        return (chunk, out) if images is None else (chunk, out, images)

@@ -7,6 +7,9 @@ process, process r holds rows [r * b, (r + 1) * b) of the global batch.
 The port runs one process per card in a `torch.distributed` process group
 (NCCL on cards, gloo on the CPU), rank r with the same rows, its state
 broadcast from rank 0; `train/dist.py` holds the step's collectives.
+
+`spawn` pins each rank's fp32 numerics first (`ops/_build.py::
+pin_fp32_numerics`): a spawned rank does not inherit the parent's flags.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import tempfile
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..ops._build import pin_fp32_numerics
 
 # A rank that builds the kernels or writes a snapshot keeps the others
 # waiting at the next collective: far longer than gloo's default 30 s.
@@ -135,14 +140,19 @@ def replicate(state):
     return state
 
 
+def _pinned_rank(rank, fn, *args):
+    pin_fp32_numerics()
+    fn(rank, *args)
+
+
 def spawn(fn, world, *args):
     """Run fn(rank, world, *args) in `world` new processes (spawned: a fresh
-    interpreter each) and wait for all; an exception in any rank is raised
-    here."""
+    interpreter each, its fp32 numerics pinned first) and wait for all; an
+    exception in any rank is raised here."""
     import torch.multiprocessing as mp
 
-    mp.start_processes(fn, args=(world,) + args, nprocs=world, join=True,
-                       start_method="spawn")
+    mp.start_processes(_pinned_rank, args=(fn, world) + args, nprocs=world,
+                       join=True, start_method="spawn")
 
 
 def _dryrun_rank(rank, world, init_method, device):

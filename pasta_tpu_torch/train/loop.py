@@ -233,6 +233,9 @@ def _training_loop_impl(
 ):
     rank, world = tdist.rank(), tdist.world_size()
     is_chief = rank == 0
+    print(f"fp32 numerics: cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}")
     state = start_state(cfg, seed, device, resume_path)
     summarize_state(state)  # startup accounting (misc.py:201-269 analogue)
     if resume_path is not None and cfg.ema_rampup is not None:

@@ -12,14 +12,14 @@ import pytest
 import torch
 
 from pasta_tpu_torch.ops import conv3x3 as k1
+from pasta_tpu_torch.ops._build import pin_fp32_numerics
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    pin_fp32_numerics()
     return torch.device("cuda")
 
 
@@ -475,3 +475,58 @@ def test_training_options_a_step_matches_cpu(cuda):
         den = sum(t.square().sum() for t in pc[k].values())
         assert (num / den).sqrt().item() <= 1e-4, k
     assert lc != 0 and abs(lg - lc) <= 1e-3 * abs(lc)
+
+
+# K1's fp32 serving shapes (the fashion generator under cli.test's default
+# --g-bf16-res 0): the VALID conv on the upsampled 514 input, the SAME
+# 64-channel convs at 512^2 and the 128-channel one at 256^2, at the batch
+# of cli.test's default (1) and of the smoke's inference runs (8).
+FP32_SERVING = [(514, 128, 64), (514, 64, 64), (514, 64, 128),
+                (258, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("hw,ci,co", FP32_SERVING)
+def test_k1_fp32_serving_shapes(cuda, n, hw, ci, co):
+    g = torch.Generator(device=cuda).manual_seed(hw + ci + co + n)
+    x = torch.randn(n, hw, hw, ci, device=cuda, generator=g)
+    w = torch.randn(3, 3, ci, co, device=cuda, generator=g) / (9 * ci) ** 0.5
+    before = k1.conv3x3_valid.launches_fp32
+    got = k1.conv3x3_valid(x, w)
+    ref = k1.conv3x3_valid_plain(x, w)
+    torch.cuda.synchronize()
+    assert k1.conv3x3_valid.launches_fp32 == before + 1
+    assert got.shape == ref.shape == (n, hw - 2, hw - 2, co)
+    assert ((got - ref).abs().max().item()
+            <= 1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_run_stream_on_the_card(cuda, tmp_path):
+    """run_stream on CUDA tensors (pinned staging, copies that do not block
+    the host, each output fetched one batch late) yields run_batch's
+    outputs bit for bit, in order, the tail batch padded; narrow 512 px
+    generator, fp32."""
+    from pasta_tpu_torch.data.synthetic import write_tryon_root
+    from pasta_tpu_torch.models import Generator
+    from pasta_tpu_torch.serving import TryonPipeline
+
+    root = str(tmp_path / "root")
+    pairs = write_tryon_root(root, 5)
+    model = Generator(seed=0, img_resolution=512, channel_base=2048,
+                      channel_max=128).eval().to(cuda)
+    for noise_mode in ("const", "random"):
+        pipe = TryonPipeline(model, mode="upper", noise_mode=noise_mode,
+                             seed=3)
+        streamed = list(pipe.run_stream(root, pairs, batch_size=2,
+                                        num_workers=2))
+        assert [c for c, _ in streamed] == [pairs[0:2], pairs[2:4],
+                                            pairs[4:5]]
+        ref = TryonPipeline(model, mode="upper", noise_mode=noise_mode,
+                            seed=3)
+        for i, (chunk, out) in enumerate(streamed):
+            items = [ref.prepare_pair(root, p) for p in chunk]
+            items += [items[-1]] * (2 - len(items))
+            want = ref.run_batch(items).float().cpu().numpy()[:len(chunk)]
+            assert out.dtype == np.float32 and np.array_equal(out, want)

@@ -118,6 +118,7 @@ def test_winding_normalized():
     (pose, jpose, "JOINT_ORDER"), (geometry, jgeometry, "BODY_PARTS"),
     (geometry, jgeometry, "LOWER_PARTS"),
     (geometry, jgeometry, "SLEEVE_PARTS"), (pp, jpp, "_RETAIN_LUT"),
+    (pp, jpp, "_USE_NATIVE"),
 ])
 def test_copied_constants(mod, orig, name):
     got, ref = getattr(mod, name), getattr(orig, name)
@@ -309,9 +310,11 @@ def test_pad_helpers():
 
 @pytest.mark.parametrize("k", [5, 8])
 def test_erode_and_warp_cv2_branches(k, monkeypatch):
-    """`_warp` and `_erode_mask_255` are the originals' cv2 branches (the
-    originals take them too unless PASTA_USE_NATIVE=1)."""
+    """`_warp` and `_erode_mask_255` in their cv2 branches, which both
+    packages take unless PASTA_USE_NATIVE=1 (tests/test_torch_native.py
+    holds the native branches)."""
     monkeypatch.setattr(jpp, "_USE_NATIVE", False)
+    monkeypatch.setattr(pp, "_USE_NATIVE", False)
     rng = np.random.RandomState(k)
     mask = (rng.rand(96, 96, 1) > 0.2).astype(np.uint8) * 255
     _equal(pp._erode_mask_255(mask, k), jpp._erode_mask_255(mask, k),
@@ -321,3 +324,35 @@ def test_erode_and_warp_cv2_branches(k, monkeypatch):
     img = rng.randint(0, 255, (96, 96, 3)).astype(np.uint8)
     m = np.array([[1.1, 0.1, -4.0], [-0.05, 0.9, 3.0], [1e-4, 2e-4, 1.0]])
     _equal(pp._warp(img, m, (48, 32)), jpp._warp(img, m, (48, 32)), "_warp")
+
+
+@pytest.mark.parametrize("seed,jitter", PAIRS[:2])
+@pytest.mark.parametrize("mode", ["upper", "lower", "full"])
+def test_preprocess_pair_equals_original(seed, jitter, mode):
+    """The host-side conditioning of the test modes (the parity path of
+    cli/test.py), with and without the sleeve mask: every array equal."""
+    person = make_person(seed, jitter=jitter, garment=(mode == "lower"))
+    clothes = make_garment(100 + seed, jitter=jitter)
+    for sleeve in (True, False):
+        got = pp.preprocess_pair(person, clothes, mode,
+                                 use_sleeve_mask=sleeve)
+        ref = jpp.preprocess_pair(_jax_record(person), _jax_record(clothes),
+                                  mode, use_sleeve_mask=sleeve)
+        _equal(got, ref, f"preprocess_pair[{mode}, sleeve {sleeve}]")
+
+
+def test_png_palette_blue():
+    """The PLTE walk of _decode_label_plane's palette branch."""
+    import io
+
+    import PIL.Image
+
+    idx = np.arange(12, dtype=np.uint8).reshape(3, 4)
+    pal = PIL.Image.fromarray(idx, mode="P")
+    pal.putpalette([v for i in range(256) for v in (i, 255 - i, i // 3)])
+    for img in (pal, PIL.Image.fromarray(idx)):
+        buf = io.BytesIO()
+        img.save(buf, "PNG")
+        _equal(pp._png_palette_blue(buf.getvalue()),
+               jpp._png_palette_blue(buf.getvalue()), "_png_palette_blue")
+    assert pp._png_palette_blue(b"\x89PNG\r\n\x1a\n") is None

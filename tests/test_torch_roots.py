@@ -5,11 +5,11 @@ on one synthetic root written under tmp_path, as a directory and as a zip.
 
 Everything here is integer or file work, so every comparison is exact
 (`np.array_equal`), apart from `cords_to_map` (float32 exponentials of the
-same numpy expression: equal too). The JAX package decodes through its
-compiled `native` plugin where that is built; the port has the PIL / cv2
-branches only, so the tests switch the plugin off on the JAX side
-(`pasta_tpu.native.available` patched to return False) and both packages
-take the same decoder.
+same numpy expression: equal too). Both packages decode through their
+compiled `native` plugins where those are built; the tests switch both
+plugins off (`available` patched to return False), so that both packages
+take their PIL / cv2 branches here. tests/test_torch_native.py holds the
+plugins' branches.
 """
 
 import dataclasses
@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 import pasta_tpu.native as jnative
+import pasta_tpu_torch.native as pnative
 from pasta_tpu.data import cihp as jcihp
 from pasta_tpu.data import preprocess as jpp
 from pasta_tpu.data import roots as jroots
@@ -37,6 +38,7 @@ SEED = 40
 @pytest.fixture(autouse=True)
 def _no_native(monkeypatch):
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(pnative, "available", lambda: False)
 
 
 @pytest.fixture(scope="module")

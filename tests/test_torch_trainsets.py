@@ -3,9 +3,9 @@
 against pasta_tpu's, on one synthetic root written under tmp_path.
 
 Host side (numpy and cv2 in both packages, the same draws from equally
-seeded RandomStates): every array is `np.array_equal`. The JAX package's
-compiled `native` decoder is switched off (`pasta_tpu.native.available`
-patched to False), so both decode with PIL / cv2.
+seeded RandomStates): every array is `np.array_equal`. Both packages'
+compiled `native` decoders are switched off (`available` patched to
+False), so both decode with PIL / cv2.
 
 `assemble_train_batch` on a uint8 raw batch: exact against the host
 stacker, 2 ulp against the jitted JAX assembler. `assemble_train_batch_
@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 
 import pasta_tpu.native as jnative
+import pasta_tpu_torch.native as pnative
 from pasta_tpu.data import preprocess as jpp
 from pasta_tpu.data import trainsets as jts
 from pasta_tpu_torch.data import preprocess as pp
@@ -38,6 +39,7 @@ SEED = 60
 @pytest.fixture(autouse=True)
 def _no_native(monkeypatch):
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(pnative, "available", lambda: False)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -153,5 +153,11 @@ def start_task(rank, world, p):
     return out
 
 
+def numerics_task(rank, world, p):
+    """The fp32 flags this spawned rank runs with."""
+    return dict(cudnn=torch.backends.cudnn.allow_tf32,
+                matmul=torch.backends.cuda.matmul.allow_tf32)
+
+
 TASKS = dict(step=step_task, mbstd=mbstd_task, reductions=reductions_task,
-             start=start_task)
+             start=start_task, numerics=numerics_task)
