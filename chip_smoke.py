@@ -7,9 +7,10 @@ try-on inference run through cli/test.py (both pipelines, run_stream), the
 EMA, ADA), a training run through the command line (dataset files on
 disk, both loaders, the loop, snapshots, an exact resume) and the training
 options (grad_accum, Gpl, the contextual loss, the doubled parsing-D
-phase, freeze-D, the shared and the reused fakes) and data-parallel
-training over ranks -- with seeded random weights and seeded synthetic
-inputs, in phases:
+phase, freeze-D, the shared and the reused fakes), data-parallel training
+over ranks and evaluation (cli.calc_metrics's five metrics and the
+in-training metrics of cli.train) -- with seeded random weights and seeded
+synthetic inputs, in phases:
 
   1. device      -- fails without CUDA; prints the card's name, power limit
   2. build       -- compiles csrc/conv3x3.cu (K1) and csrc/shift.cu (K2, K3)
@@ -109,6 +110,25 @@ inputs, in phases:
                     run_stream with 1, 2 and 4 prep threads; host prep
                     pairs/s at 1 and 8 threads with the plugin and
                     without; cli/bench.py's JSON line
+ 15. evaluation  -- seeded detectors at full width written as .npz;
+                    cli.test --pipeline serving --g-bf16-res 3 on a root of
+                    16 persons, each with 4 others' garments (64
+                    composites); cli.calc_metrics --metrics
+                    fid,kid,inception_score,pr,ppl --crop-generated
+                    against the persons' real images (pr on VGG16 fc7, ppl
+                    on VGG16 LPIPS over the fashion Generator), each
+                    value finite, each metric's seconds, K1 launches = 4 a
+                    Inception batch + 3 a VGG16 one + 26 a generator
+                    forward; FID of the reals against themselves within
+                    1e-3; Inception features card vs CPU within 1e-4 of
+                    their scale; the detectors' images/s at batch 32;
+                    cli.train (fashion, batch 4, 2 steps) with --metrics
+                    fid,kid,fid_tryon --metric-items 16 --metric-ticks 1:
+                    the metrics in stats.jsonl, no held-out item sampled,
+                    one evaluation's seconds, exact launches; every K1
+                    shape the detectors launched (Inception 64->96 at
+                    35x35, VGG16 at 224 and LPIPS at 256) against plain,
+                    timed in turns with plain and cuDNN, with its bound
 
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; the one
@@ -1922,7 +1942,7 @@ def _budget(a, b):
     return float((diff > 1e-2 * span).float().mean()), float(diff.mean()) / span
 
 
-def _k1_rows(k1, shapes, dev, tag):
+def _k1_rows(k1, shapes, dev, tag, phase="inference"):
     """Each K1 shape in `shapes` against plain on random inputs (fp32 1e-5,
     bf16 2^-7 of the output scale), K1 and plain timed in turns, cuDNN's
     F.conv2d on the same input, the bound. Returns phase 3's rows."""
@@ -1950,7 +1970,7 @@ def _k1_rows(k1, shapes, dev, tag):
         ho, wo = got.shape[1], got.shape[2]
         t_bound, by, flop = conv_bound(xs[0], ho, wo, xs[3], ws[3], dtype,
                                        x.numel(), got.numel())
-        print(f"[inference] {tag} K1 {str(dtype)[6:]} {list(xs)}->{ws[3]} "
+        print(f"[{phase}] {tag} K1 {str(dtype)[6:]} {list(xs)}->{ws[3]} "
               f"out_w {out_w}: max_abs_err {err:.3g} (bound {bound:.3g}) | "
               f"K1 {t_k1:.4f} ms ({flop / t_k1 / 1e9:.1f} TFLOP/s) | plain "
               f"{t_plain:.4f} | cuDNN {t_lib:.4f} | bound {t_bound:.4f} "
@@ -2105,6 +2125,292 @@ def phase_inference(k1, shift, dev="cuda"):
     return launched, k1_rows
 
 
+EVAL_PERSONS = 16       # phase 15's synthetic root (its real images)
+EVAL_GARMENTS = 4       # each person with 4 others' garments: 64 pairs
+EVAL_BATCH = 32         # the detectors' batch (cli.calc_metrics --batch)
+EVAL_ITEMS = 16         # held-out items of phase 15's training run
+EVAL_STEPS = 2          # its steps: one tick, one evaluation
+INCEPTION_K1, VGG16_K1 = 4, 3   # K1 launches a detector batch
+
+
+@contextlib.contextmanager
+def _detector_calls(k1, shapes, calls):
+    """Inside the block, counts the detectors' batches (InceptionV3
+    forwards, VGG16 backbones: calls["inception"], calls["vgg16"]) and
+    records each distinct shape K1 launches at inside them in `shapes`.
+    The launches and their counts are unchanged."""
+    from pasta_tpu_torch.metrics.inception import InceptionV3
+    from pasta_tpu_torch.metrics.vgg16 import VGG16
+
+    conv, inc_fwd, vgg_bb = k1._kernel, InceptionV3.forward, VGG16.backbone
+    inside = []
+
+    def conv_seen(x, w, out_w, pad=0):
+        if inside:
+            shapes.add((tuple(x.shape), tuple(w.shape), x.dtype, out_w,
+                        pad))
+        return conv(x, w, out_w, pad)
+
+    def counted(fn, name):
+        def run(*args, **kw):
+            calls[name] += 1
+            inside.append(name)
+            try:
+                return fn(*args, **kw)
+            finally:
+                inside.pop()
+        return run
+
+    k1._kernel = conv_seen
+    InceptionV3.forward = counted(inc_fwd, "inception")
+    VGG16.backbone = counted(vgg_bb, "vgg16")
+    try:
+        yield
+    finally:
+        k1._kernel = conv
+        InceptionV3.forward, VGG16.backbone = inc_fwd, vgg_bb
+
+
+def phase_evaluation(k1, shift, dev="cuda", small=False):
+    """Evaluation as users run it: cli.test's serving pipeline writes the
+    composites of 64 pairs; cli.calc_metrics computes fid, kid,
+    inception_score, pr (VGG16 fc7) and ppl (VGG16 LPIPS, the fashion
+    Generator) against the persons' real images with seeded detectors at
+    full width (.npz); cli.train runs 2 steps with the in-training metrics
+    (fid, kid, fid_tryon over 16 held-out items). Then every K1 shape the
+    detectors launched against plain, with times. `small` shrinks the
+    roots, the batches and the training config (a CPU rehearsal).
+    Returns (K1 launches of the three runs, the detector shapes' rows)."""
+    import PIL.Image
+
+    from pasta_tpu_torch.cli import bench_train
+    from pasta_tpu_torch.cli import calc_metrics as cli_metrics
+    from pasta_tpu_torch.cli import test as cli_test
+    from pasta_tpu_torch.cli import train as cli_train
+    from pasta_tpu_torch.data.synthetic import write_dataset_root
+    from pasta_tpu_torch.metrics import metric_main as mm
+    from pasta_tpu_torch.metrics.inception import random_inception_state
+    from pasta_tpu_torch.metrics.vgg16 import random_vgg16_state
+    from pasta_tpu_torch.nn import synthesis as nsyn
+    from pasta_tpu_torch.train import loop as tloop
+
+    card = torch.device(dev).type == "cuda"
+    persons = 4 if small else EVAL_PERSONS
+    batch = 4 if small else EVAL_BATCH
+    items = 2 if small else EVAL_ITEMS
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pasta_smoke_eval_")
+    shapes, calls = set(), collections.Counter()
+    launched = 0
+    try:
+        t0 = time.perf_counter()
+        inc_npz = os.path.join(tmp, "inception.npz")
+        vgg_npz = os.path.join(tmp, "vgg16.npz")
+        np.savez(inc_npz, **{k: v.numpy() for k, v in
+                             random_inception_state(0).items()})
+        np.savez(vgg_npz, **{k: v.numpy() for k, v in
+                             random_vgg16_state(0).items()
+                             if not k.startswith("lins")})
+        print(f"[evaluation] seeded detectors (InceptionV3 fp32, VGG16 fp32, "
+              f"full widths) written as .npz in {time.perf_counter() - t0:.1f}"
+              " s", flush=True)
+
+        # (ii) the composites, then the five metrics through the CLI
+        root = os.path.join(tmp, "root")
+        names = write_dataset_root(root, persons, 600)
+        pairs = [(names[i], names[(i + k) % persons])
+                 for k in range(1, EVAL_GARMENTS + 1)
+                 for i in range(persons)]
+        with open(os.path.join(root, "test_pairs.txt"), "w") as f:
+            f.write("".join(f"{c} {p}\n" for p, c in pairs))
+        gen = os.path.join(tmp, "composites")
+        serve_batch = 8
+        k1.conv3x3_valid.launches = k1.conv3x3_valid.launches_fp32 = 0
+        t0 = time.perf_counter()
+        cli_test.main(["--dataroot", root, "--testtxt", "test_pairs.txt",
+                       "--testpart", "upper", "--batchsize", str(serve_batch),
+                       "--outdir", gen, "--pipeline", "serving",
+                       "--g-bf16-res", "3", "--device", dev])
+        _sync(dev)
+        served = k1.conv3x3_valid.launches
+        n = _composites(gen, pairs)
+        print(f"[evaluation] cli.test --pipeline serving --g-bf16-res 3: {n} "
+              f"composites of {persons} persons x {EVAL_GARMENTS} garments in "
+              f"{time.perf_counter() - t0:.1f} s | K1 launches {served}",
+              flush=True)
+        check(not card or served == K1_PER_BATCH * -(-n // serve_batch),
+              f"evaluation: cli.test K1 launches {served}")
+
+        launched += served
+        k1.conv3x3_valid.launches = k1.conv3x3_valid.launches_fp32 = 0
+        g_runs = []
+        texture_fwd = nsyn.SynthesisBlockTexture.forward
+
+        def texture_counted(self, *args, **kw):
+            g_runs.append(1)
+            return texture_fwd(self, *args, **kw)
+
+        nsyn.SynthesisBlockTexture.forward = texture_counted
+        t0 = time.perf_counter()
+        try:
+            with _detector_calls(k1, shapes, calls):
+                records = cli_metrics.main([
+                    "--metrics", "fid,kid,inception_score,pr,ppl",
+                    "--real", os.path.join(root, "image"), "--gen", gen,
+                    "--detector", inc_npz, "--vgg16-detector", vgg_npz,
+                    "--crop-generated", "--dataroot", root, "--testtxt",
+                    "test_pairs.txt", "--batch", str(batch), "--run-dir",
+                    os.path.join(tmp, "metrics"), "--device", dev])
+            _sync(dev)
+        finally:
+            nsyn.SynthesisBlockTexture.forward = texture_fwd
+        seconds = time.perf_counter() - t0
+        metric_k1 = k1.conv3x3_valid.launches
+        launched += metric_k1
+        values = {k: v for r in records for k, v in r["results"].items()}
+        check(set(values) == {"fid", "kid", "is_mean", "is_std", "precision",
+                              "recall", "ppl"}
+              and all(np.isfinite(v) for v in values.values()),
+              f"evaluation: calc_metrics results {values}")
+        want = (INCEPTION_K1 * calls["inception"] + VGG16_K1 * calls["vgg16"]
+                + G_FWD_K1 * len(g_runs))
+        check(not card or (metric_k1 == want
+                           and k1.conv3x3_valid.launches_fp32 == want),
+              f"evaluation: calc_metrics K1 launches {metric_k1} "
+              f"({k1.conv3x3_valid.launches_fp32} fp32) != {want}")
+        print(f"[evaluation] cli.calc_metrics --crop-generated over {n} "
+              f"composites and {persons} reals, --batch {batch}, in "
+              f"{seconds:.1f} s: "
+              + ", ".join(f"{r['metric']} {r['total_time']:.2f} s "
+                          f"{json.dumps(r['results'])}" for r in records)
+              + f" | K1 launches {metric_k1} (all fp32) = {INCEPTION_K1} x "
+              f"{calls['inception']} Inception batches + {VGG16_K1} x "
+              f"{calls['vgg16']} VGG16 + {G_FWD_K1} x {len(g_runs)} "
+              "generator forwards (ppl)", flush=True)
+
+        runner = mm.DetectorRunner(mm.load_detector(inc_npz, dev), batch)
+        t0 = time.perf_counter()
+        same = mm.calc_metric("fid", runner, os.path.join(root, "image"),
+                              os.path.join(root, "image"))["results"]["fid"]
+        check(abs(same) <= 1e-3, f"evaluation: FID of a folder against "
+              f"itself {same}")
+
+        crops = []
+        for name in sorted(os.listdir(gen))[:batch]:
+            crops.append(np.asarray(PIL.Image.open(os.path.join(
+                gen, name)).convert("RGB"))[:, 640:960])
+        imgs = torch.from_numpy(np.stack(crops)).to(dev)
+        feats = runner._features(imgs[:8])[0].cpu()
+        cpu = mm.DetectorRunner(mm.load_detector(inc_npz, "cpu"))
+        ref = cpu._features(imgs[:8].cpu())[0]
+        err = float((feats - ref).abs().max() / ref.abs().max())
+        check(err <= 1e-4, f"evaluation: Inception features card vs CPU "
+              f"{err} of the scale")
+        rates = {}
+        if card:
+            vgg = mm.DetectorRunner(mm.load_vgg16_detector(vgg_npz, device=dev),
+                                    batch, kind="vgg16")
+            for tag, r in (("Inception (299 px)", runner),
+                           ("VGG16 fc7 (224 px)", vgg)):
+                rates[tag] = len(imgs) / cuda_ms(
+                    lambda r=r: r._features(imgs), 3) * 1e3
+            del vgg
+        print(f"[evaluation] FID of the reals against themselves {same:.3g} "
+              f"(held: |FID| <= 1e-3; {time.perf_counter() - t0:.1f} s with "
+              f"the rest of this line) | Inception features of 8 composites "
+              f"card vs CPU: {err:.3g} of their scale (held: 1e-4) | "
+              "detector images/s at batch "
+              f"{len(imgs)} (CUDA events): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()),
+              flush=True)
+        del runner, cpu, imgs
+        _free(dev)
+
+        # (iii) the training run with the in-training metrics
+        train_root = os.path.join(tmp, "train_root")
+        write_dataset_root(train_root, 6 if small else N_PERSONS, 500)
+        taken, evals = [], []
+        originals = (tloop.ParallelLoader, tloop.TrainingEvaluator.__call__)
+
+        class Recording(originals[0]):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                get = self._get
+                self._get = lambda i: taken.append(i) or get(i)
+
+        def timed_eval(self, state):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = originals[1](self, state)
+            _sync(dev)
+            evals.append(time.perf_counter() - t0)
+            return out
+
+        gens = []
+        generate = tloop.TrainingEvaluator._generate
+
+        def counted_generate(self, *args):
+            gens.append(1)
+            return generate(self, *args)
+
+        tloop.ParallelLoader = Recording
+        tloop.TrainingEvaluator.__call__ = timed_eval
+        tloop.TrainingEvaluator._generate = counted_generate
+        calls.clear()
+        bench_train.reset_kernel_counts()
+        t0 = time.perf_counter()
+        try:
+            with _detector_calls(k1, shapes, calls):
+                run = cli_train.main([
+                    "--outdir", os.path.join(tmp, "runs"), "--cfg",
+                    "smoke" if small else "fashion", "--batch",
+                    "2" if small else str(TRAIN_BATCH), "--tick",
+                    str(EVAL_STEPS), "--snap", "100", "--workers", "4",
+                    "--data", train_root, "--max-steps", str(EVAL_STEPS),
+                    "--metrics", "fid,kid,fid_tryon", "--metric-items",
+                    str(items), "--metric-ticks", "1", "--inception",
+                    inc_npz, "--device", dev])
+            _sync(dev)
+        finally:
+            tloop.ParallelLoader = originals[0]
+            tloop.TrainingEvaluator.__call__ = originals[1]
+            tloop.TrainingEvaluator._generate = generate
+        seconds = time.perf_counter() - t0
+        counts = _launches(k1)
+        launched += counts[0] + counts[1]
+        with open(os.path.join(run, "stats.jsonl")) as f:
+            (row,) = [json.loads(line) for line in f]
+        got = {k: row.get(k) for k in ("fid_holdout", "kid_holdout",
+                                       "fid_tryon")}
+        check(all(v is not None and np.isfinite(v) for v in got.values()),
+              f"evaluation: training run's stats row {row}")
+        check(taken and min(taken) >= items,
+              f"evaluation: the sampler took held-out items "
+              f"{sorted(set(taken))[:8]}")
+        first, rest = STEP_LAUNCHES["default", "r1"], STEP_LAUNCHES[
+            "default", "regular"]
+        ev = G_FWD_K1 * len(gens) + INCEPTION_K1 * calls["inception"]
+        want = tuple(a + b + c + d for a, b, c, d in zip(
+            first, rest, (G_FWD_K1, 0, 0, 0, G_FWD_K1), (ev, 0, 0, 0, ev)))
+        check(not card or counts == want,
+              f"evaluation: training run launches {counts} != {want}")
+        print(f"[evaluation] cli.train --metrics fid,kid,fid_tryon "
+              f"--metric-items {items} --metric-ticks 1, {EVAL_STEPS} steps "
+              f"in {seconds:.1f} s: {json.dumps(got)} | one evaluation "
+              f"{evals[0]:.2f} s ({len(gens)} G-EMA batches, "
+              f"{calls['inception']} Inception batches) | sampled items "
+              f"{sorted(set(taken))} (held out: 0..{items - 1}) | launches "
+              f"K1 fwd/dX, K2, K3, K1 fp32 {counts} = R1 step {first} + "
+              f"{rest} + the snapshot's draw + the evaluation's {ev}",
+              flush=True)
+        rows = _k1_rows(k1, shapes, dev, "detector", phase="evaluation")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[evaluation] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launched, rows
+
+
 def main():
     smi = phase_device()
     from pasta_tpu_torch.ops._build import pin_fp32_numerics
@@ -2126,7 +2432,8 @@ def main():
     phase_options_check()
     dist_counts, _ = phase_dist()
     infer_counts, infer_rows = phase_inference(k1, shift)
-    k1_rows = rows + train_rows["K1"] + infer_rows
+    eval_launches, eval_rows = phase_evaluation(k1, shift)
+    k1_rows = rows + train_rows["K1"] + infer_rows + eval_rows
 
     def total(rs, key):
         return sum(r[key] for r in rs)
@@ -2154,12 +2461,14 @@ def main():
     # and read just after (serving, the bare training steps, the training
     # run through the command line and its run with the options, the
     # options' steps, the data-parallel steps summed over their ranks, the
-    # inference runs through cli.test), summed
+    # inference runs through cli.test, the evaluation's serving run,
+    # metrics and training run with the metrics), summed
     print(json.dumps({"kernels": [
         entry("conv3x3_valid", "pasta_tpu_torch/csrc/conv3x3.cu",
               "pasta_tpu/ops/pallas_conv.py:139",
               launches + k1_total + sum(run_counts[:2]) + sum(opt_run[:2])
-              + sum(opt_counts[:2]) + sum(dist_counts[:2]) + infer_counts[0],
+              + sum(opt_counts[:2]) + sum(dist_counts[:2]) + infer_counts[0]
+              + eval_launches,
               k1_rows, opt_errs["K1"], launches_serving=launches,
               launches_train=counts[0],
               launches_dx=counts[1], launches_train_run=run_counts[0],
@@ -2175,6 +2484,8 @@ def main():
               launches_inference=infer_counts[0],
               launches_inference_fp32=infer_counts[1],
               ms_inference=total(infer_rows, "ms"),
+              launches_evaluation=eval_launches,
+              ms_evaluation=total(eval_rows, "ms"),
               ms_fp32=total(fp32, "ms"), ms_bf16=total(bf16, "ms"),
               bound_ms_fp32=total(fp32, "bound_ms"),
               bound_ms_bf16=total(bf16, "bound_ms"),

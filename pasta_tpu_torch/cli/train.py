@@ -25,9 +25,18 @@ host:port --num-processes P --process-id i makes this process rank i of P
 single-card processes meeting at tcp://host:port (the JAX CLI's
 multi-host bootstrap); process 0 writes the run directory.
 
+In-training metrics (train/loop.py::TrainingEvaluator): --metrics
+fid,kid,fid_tryon (or 'none') every --metric-ticks ticks over a held-out
+pool of --metric-items items (default the config's metric_items, 512) that
+the sampler skips, with the InceptionV3 weights of --inception (required
+with --metrics; torchvision keys, .npz or .pth); --metric-cache DIR caches
+the held-out reals' detector stats (the JAX CLI defaults it to
+~/.cache/pasta_tpu/metrics; here there is no cache unless asked for). The
+results go into stats.jsonl and the status lines.
+
 Flags of options the port has not got yet are accepted and raise
 NotImplementedError with the option's name when set off their default:
---metrics, --tryon-grid, --trace. The JAX CLI's --step-mode, --remat*,
+--tryon-grid, --trace. The JAX CLI's --step-mode, --remat*,
 --d-remat, --vgg-remat and --ada-impl steer its TPU program and are not
 flags here.
 """
@@ -114,23 +123,43 @@ def parse_args(argv=None):
     p.add_argument("--grad-accum", type=int, default=1,
                    help="microbatch accumulation rounds per step")
     p.add_argument("--trace", default=None)
-    p.add_argument("--metrics", default="none")
-    p.add_argument("--metric-ticks", type=int, default=10)
-    p.add_argument("--metric-items", type=int, default=None)
-    p.add_argument("--metric-cache", default=None)
-    p.add_argument("--inception", default=None)
+    p.add_argument("--metrics", default="none",
+                   help="comma-separated in-training metrics "
+                        "(fid,kid,fid_tryon) or 'none'; evaluated on a "
+                        "held-out set excluded from training")
+    p.add_argument("--metric-ticks", type=int, default=10,
+                   help="evaluate metrics every N ticks")
+    p.add_argument("--metric-items", type=int, default=None,
+                   help="held-out set size for metrics (these items are "
+                        "excluded from the training sampler); default "
+                        "the config's metric_items (512)")
+    p.add_argument("--metric-cache", default=None,
+                   help="disk cache dir for the held-out reals' detector "
+                        "stats; none by default ('none' too)")
+    p.add_argument("--inception", default=None,
+                   help="inception detector weights (.pth/.npz) for "
+                        "metrics")
     p.add_argument("--tryon-grid", type=int, default=0, metavar="K")
     p.add_argument("--dry-run", action="store_true")
     return p.parse_args(argv)
 
 
+def eval_metrics_of(args):
+    """The in-training metrics --metrics asks for; they need --inception."""
+    metrics = tuple(m for m in args.metrics.split(",") if m and m != "none")
+    for m in metrics:
+        if m not in ("fid", "kid", "fid_tryon"):
+            raise ValueError(f"--metrics: unsupported in-training metric {m!r}"
+                             " (fid, kid, fid_tryon)")
+    if metrics and args.inception is None:
+        raise ValueError("--metrics needs --inception (the InceptionV3 "
+                         "weights)")
+    return metrics
+
+
 def _refuse_deferred(args):
     """Loop-level options the port has not got yet (the TrainConfig ones
     raise from TrainConfig.__post_init__ with their own names)."""
-    if args.metrics not in ("none", ""):
-        raise NotImplementedError(
-            f"--metrics {args.metrics!r}: the in-training evaluator is not "
-            "ported yet (only 'none')")
     if args.tryon_grid != 0:
         raise NotImplementedError(
             f"--tryon-grid {args.tryon_grid}: the cross-pair grid is not "
@@ -159,6 +188,7 @@ def build_config(args):
     from ..train.config import TrainConfig, smoke_config
 
     _refuse_deferred(args)
+    eval_metrics_of(args)
     world = world_of(args)
     if args.cfg == "smoke":
         cfg = smoke_config(world)
@@ -295,7 +325,8 @@ def train_rank(rank, world, args, cfg, run_dir, init_method, local_world):
 
 
 def train(args, cfg, run_dir, device):
-    """The dataset, the VGG19 and the training loop on `device`."""
+    """The dataset, the VGG19, the metrics' detector and the training loop
+    on `device`."""
     from ..data.trainsets import TryonTrainDataset
     from ..train.dist import rank
     from ..train.loop import training_loop
@@ -315,10 +346,20 @@ def train(args, cfg, run_dir, device):
         if args.vgg19 is None and chief:
             print("WARNING: no --vgg19 weights; the VGG and contextual "
                   "losses run on seeded random weights")
+    eval_metrics = eval_metrics_of(args)
+    detector = None
+    if eval_metrics and chief:
+        from ..metrics.metric_main import load_detector
+
+        detector = load_detector(args.inception, device)
     training_loop(cfg, dataset, run_dir, vgg=vgg, resume_path=args.resume,
                   total_steps=args.max_steps, tick_interval=args.tick,
                   num_workers=args.workers, snapshot_ticks=args.snap,
-                  seed=args.seed, device=device)
+                  seed=args.seed, device=device, eval_metrics=eval_metrics,
+                  eval_ticks=args.metric_ticks, eval_items=args.metric_items,
+                  detector=detector,
+                  metric_cache_dir=(None if args.metric_cache in (None, "none")
+                                    else os.path.expanduser(args.metric_cache)))
 
 
 if __name__ == "__main__":

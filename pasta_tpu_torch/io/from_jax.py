@@ -17,6 +17,11 @@ gives it) becomes a strict-loadable state dict for the port's `Generator`:
 (the same rules, plus the epilogue fc: the JAX package flattens the 4x4
 features NHWC, the reference and the port NCHW), and
 `vgg19_jax_to_state_dict` inverts `losses/vgg.py::import_vgg19_torch_state`.
+The detectors of the metrics: `inception_jax_to_state_dict` inverts
+`metrics/inception.py::import_inception_torch_state` and
+`vgg16_jax_to_state_dict` inverts `metrics/vgg16.py::import_vgg16_torch_state`
+(the LPIPS lin weights included), so both packages run the same seeded
+detectors.
 
 The way back, for a training state saved by the port and read by the JAX
 package: `state_dict_to_jax` and `discriminator_state_dict_to_jax` are the
@@ -96,6 +101,33 @@ def vgg19_jax_to_state_dict(
         else:
             state[f"features.{idx}.bias"] = torch.from_numpy(np.array(value))
     return state
+
+
+def _detector_state(tree):
+    """Nested detector tree -> dotted keys, conv weights HWIO -> OIHW (the
+    4-d leaves; the fc weights are [out, in] in both layouts)."""
+    state = {}
+    for path, value in _flatten(tree):
+        value = np.asarray(value, np.float32)
+        if value.ndim == 4:
+            value = value.transpose(3, 2, 0, 1)
+        state[".".join(path)] = torch.from_numpy(np.array(value))
+    return state
+
+
+def inception_jax_to_state_dict(
+        params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's InceptionV3 tree (`random_inception_params`,
+    `import_inception_torch_state`) -> the port's InceptionV3 state dict
+    (torchvision keys without the auxiliary head)."""
+    return _detector_state(params)
+
+
+def vgg16_jax_to_state_dict(
+        params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's VGG16 tree ({"features", "classifier", "lins"})
+    -> the port's VGG16 state dict (torchvision keys, `lins.{k}`)."""
+    return _detector_state(params)
 
 
 def load_npz(path) -> Dict[str, torch.Tensor]:

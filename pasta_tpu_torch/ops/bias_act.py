@@ -1,8 +1,17 @@
 """Bias + activation + gain + clamp (elementwise), port of
-pasta_tpu/ops/bias_act.py. `dim` defaults to -1 (channels-last)."""
+pasta_tpu/ops/bias_act.py. `dim` defaults to -1 (channels-last).
+
+The activation's slope and the gain are rounded to x's dtype before they
+multiply it, as JAX rounds a Python scalar to a bf16 array's dtype:
+PyTorch would multiply a bf16 tensor by the unrounded constant and round
+once, so sqrt(2) (1.41421 -> 1.41406 in bf16) and 0.2 moved about 4% of a
+bf16 layer's values by one step from the JAX package's. In fp32 both
+round the constant alike.
+"""
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -29,6 +38,12 @@ activation_funcs = {
     "swish": _ActSpec(lambda x, alpha: torch.sigmoid(x) * x, 0.0,
                       math.sqrt(2.0)),
 }
+
+
+@functools.lru_cache(maxsize=64)
+def _rounded(value, dtype):
+    """`value` rounded to `dtype`, as a Python float."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def bias_act(x, b=None, dim=-1, act="linear", alpha=None, gain=None,
@@ -60,9 +75,9 @@ def bias_act(x, b=None, dim=-1, act="linear", alpha=None, gain=None,
         shape[axis] = -1
         x = x + b.to(x.dtype).reshape(shape)
 
-    x = spec.func(x, alpha)
+    x = spec.func(x, _rounded(alpha, x.dtype))
     if gain != 1:
-        x = x * gain
+        x = x * _rounded(gain, x.dtype)
     if clamp is not None:
         x = x.clamp(-clamp, clamp)
     return x

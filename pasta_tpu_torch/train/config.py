@@ -18,9 +18,9 @@ and `grad_accum == 1`, as in the JAX step), the path-length regularizer
 (`pl_weight` with `g_reg_interval`, `pl_batch_shrink`, `pl_decay`), the
 reference's doubled parsing-D phase (`double_d_parsing`), freeze-D
 (`freeze_d_layers`) and the contextual loss (`contextual_weight`).
-`metric_items` comes with the in-training evaluator; `ada_interval` is
-unused in the JAX package too, and `style_mixing_prob` is a field there
-with no effect.
+`metric_items` sizes the in-training evaluator's held-out pool
+(train/loop.py); `ada_interval` is unused in the JAX package too, and
+`style_mixing_prob` is a field there with no effect.
 
 More than one GPU: `data_axis_size` ranks, one a card, each with
 `batch_per_device` rows of the global `batch_size` (which must divide).
@@ -100,6 +100,13 @@ class TrainConfig:
     # EMA
     ema_kimg: float = 10.0
     ema_rampup: Optional[float] = None
+
+    # In-training metric evaluation sizing: the held-out pool of the
+    # FID/KID evaluator (training_loop's default when the CLI does not
+    # override it). 512 items make the in-training FID a sized protocol;
+    # the held-out reals' detector stats are disk-cached
+    # (TrainingEvaluator cache_dir), so the pool costs one extraction.
+    metric_items: int = 512
 
     # ADA
     ada_target: float = 0.6

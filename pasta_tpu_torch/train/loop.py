@@ -3,7 +3,11 @@ training_loop_fullbody.py:344-789).
 
 Host loop: parallel preprocessing -> upload of the compact raw batch ->
 assembly of the step's inputs on the device -> one train step (all phases)
--> periodic status, stats, snapshots and checkpoints.
+-> periodic status, stats, snapshots and checkpoints -> optional
+in-training metric evaluation (FID / KID on a held-out set that the
+sampler never draws, and the cross-pair try-on FID: `TrainingEvaluator`,
+the reference's metric hook, training_loop_fullbody.py:738-748, which it
+ships commented out).
 
 Nothing in the loop waits for the card between ticks: the step's metrics
 stay on the device and are fetched in one transfer a tick, the uploads go
@@ -29,10 +33,10 @@ with ranks (each holds only its rows), as in the JAX loop. The ranks wait
 for each other after the first step of each lazy-phase variant and at the
 end of the run.
 
-Not here yet, each coming with the module it needs: the in-training
-evaluator (`eval_metrics`, `eval_ticks`, `eval_items`, `detector_params`,
-`metric_cache_dir`: the metrics and their detectors) and the cross-pair
-try-on grid (`tryon_grid_k`: the test-mode preprocessing).
+With ranks, the chief alone builds and runs the evaluator; every rank's
+sampler skips the held-out items.
+
+Not here yet: the cross-pair try-on grid (`tryon_grid_k`).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import dataclasses
 import os
 import sys
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import PIL.Image
@@ -50,7 +54,8 @@ import torch
 
 from ..data.trainsets import (TryonTrainDataset, assemble_train_batch,
                               assemble_train_batch_lean,
-                              batch_to_lean_inputs, batch_to_raw_inputs)
+                              batch_to_lean_inputs, batch_to_raw_inputs,
+                              batch_to_train_inputs)
 from ..io.checkpoint import load_checkpoint, save_checkpoint
 from ..io.npz_ckpt import load_npz_state
 from ..summary import summarize_state
@@ -185,6 +190,157 @@ def save_image_grid(images, path, drange=(-1, 1), grid_cols=None,
     PIL.Image.fromarray(grid).save(path)
 
 
+class TrainingEvaluator:
+    """In-training metric evaluation on a held-out set, port of the JAX
+    loop's.
+
+    The first `num_items` dataset items are the held-out pool: the training
+    loop excludes exactly those indices from its sampler (ParallelLoader
+    holdout, data/sampler.py skip_first), so the EMA generator is never
+    trained on what it is evaluated on. Two protocols:
+
+    * ``fid_holdout`` / ``kid_holdout``: reconstruction -- G_ema re-renders
+      each held-out item from its own conditioning (same pair, const
+      noise); detector features against those items' reals.
+    * ``fid_tryon``: the cross-pair protocol -- held-out person i wearing
+      held-out garment i+1 (test-mode preprocessing, `preprocess_pair`),
+      features against the held-out reals.
+
+    The real side's detector stats are computed once, at construction, and
+    cached on disk in `cache_dir` when given, keyed by the held-out items,
+    the resolution and the detector (the port's state-dict keys, so the
+    key is not the JAX package's). `detector` is an `InceptionV3` on the
+    device the evaluation runs on, the G-EMA's.
+    """
+
+    def __init__(self, cfg: TrainConfig, dataset, detector,
+                 num_items: int = 64, batch_size: int = 8,
+                 metrics: Sequence[str] = ("fid",), tryon_mode="upper",
+                 cache_dir: Optional[str] = None):
+        from ..metrics.metric_main import DetectorRunner
+
+        for m in metrics:
+            if m not in ("fid", "kid", "fid_tryon"):
+                raise ValueError(f"unsupported in-training metric: {m}")
+        self.metrics = tuple(metrics)
+        n = min(num_items, len(dataset))
+        batch_size = min(batch_size, n)
+        self.runner = DetectorRunner(detector, batch_size=batch_size)
+        self.device = self.runner.device
+        items = [dataset[i] for i in range(n)]
+        self.batches = [
+            batch_to_train_inputs(items[i:i + batch_size])
+            for i in range(0, n - batch_size + 1, batch_size)
+        ]  # full batches only, as in the JAX evaluator
+        self.real_stats = None
+        cache_file = None
+        if cache_dir is not None:
+            from ..metrics.feature_stats import FeatureStats, cache_path
+
+            cache_file = cache_path(
+                cache_dir, "train-real-stats",
+                root=str(getattr(dataset, "root", "")),
+                names=list(getattr(dataset, "image_names", []))[:n],
+                resolution=cfg.resolution, num_items=n,
+                detector=self.runner.kind,
+                detector_digest=_state_digest(detector))
+            if os.path.exists(cache_file):
+                self.real_stats = FeatureStats.load(cache_file)
+        if self.real_stats is None:
+            reals = np.concatenate([b["real_img"] for b in self.batches])
+            self.real_stats = self.runner.array_stats(
+                _to_uint8(reals), capture_all=True)
+            if cache_file is not None:
+                self.real_stats.save(cache_file)
+        self.tryon_batches = None
+        if "fid_tryon" in self.metrics:
+            self.tryon_batches = self._build_tryon_batches(
+                cfg, dataset, n, batch_size, tryon_mode)
+
+    @staticmethod
+    def _build_tryon_batches(cfg, dataset, n, batch_size, mode):
+        """Cross-pair inputs (person i, the garment of person i+1 mod n)
+        over the held-out pool, test-mode preprocessing (the reference
+        test.py's pairs-list semantics)."""
+        from ..data import preprocess as pp
+        from ..data.roots import as_root
+        from ..data.testsets import to_model_inputs
+        from ..data.trainsets import _resize_item
+
+        root = as_root(dataset.root)
+        people = [pp.load_person(root, name, with_garment_parsing=True)
+                  for name in dataset.image_names[:n]]
+        items = [pp.preprocess_pair(people[i], people[(i + 1) % len(people)],
+                                    mode)
+                 for i in range(len(people))]
+        if cfg.resolution != 512:
+            items = [_resize_item(it, cfg.resolution) for it in items]
+        return [to_model_inputs(items[i:i + batch_size])[0]
+                for i in range(0, len(items) - batch_size + 1, batch_size)]
+
+    def _generate(self, g_ema, inputs):
+        """G-EMA's finetune images of one batch of numpy inputs, const
+        noise, on the host as float32."""
+        t = {k: torch.from_numpy(np.asarray(v, np.float32)).to(self.device)
+             for k, v in inputs.items()}
+        with torch.no_grad():
+            _, finetune, _ = g_ema(noise_mode="const", **t)
+        return finetune.float().cpu().numpy()
+
+    def _fid(self, gen_stats):
+        from ..metrics.fid import compute_fid
+
+        mu_r, sig_r = self.real_stats.get_mean_cov()
+        mu_g, sig_g = gen_stats.get_mean_cov()
+        return compute_fid(mu_r, sig_r, mu_g, sig_g)
+
+    def __call__(self, state) -> dict:
+        g_ema = state.g_ema
+        fakes = [self._generate(g_ema, dict(
+            z=np.zeros((b["real_img"].shape[0], 0), np.float32),
+            c=b["style_input"], retain=b["retain"], pose=b["pose"],
+            denorm_upper_input=b["denorm_upper_input"],
+            denorm_lower_input=b["denorm_lower_input"],
+            denorm_upper_mask=b["denorm_upper_mask"],
+            denorm_lower_mask=b["denorm_lower_mask"]))
+            for b in self.batches]
+        gen = self.runner.array_stats(_to_uint8(np.concatenate(fakes)),
+                                      capture_all=True)
+        out = {}
+        for m in self.metrics:
+            if m == "fid":
+                out["fid_holdout"] = self._fid(gen)
+            elif m == "kid":
+                from ..metrics.kid import compute_kid
+
+                out["kid_holdout"] = compute_kid(self.real_stats.get_all(),
+                                                 gen.get_all())
+            else:
+                tfakes = [self._generate(g_ema, b)
+                          for b in self.tryon_batches]
+                out["fid_tryon"] = self._fid(self.runner.array_stats(
+                    _to_uint8(np.concatenate(tfakes)), capture_all=True))
+        return out
+
+
+def _to_uint8(images_pm1):
+    return ((np.asarray(images_pm1, np.float32) + 1) * 127.5).clip(
+        0, 255).astype(np.uint8)
+
+
+def _state_digest(module):
+    """Cheap deterministic digest of a module's state (a cache key)."""
+    import hashlib
+
+    h = hashlib.md5()
+    for name, t in sorted(module.state_dict().items()):
+        h.update(name.encode())
+        h.update(str(tuple(t.shape)).encode())
+        h.update(str(t.dtype).encode())
+        h.update(t.detach().reshape(-1)[:4].cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def training_loop(
     cfg: TrainConfig,
     dataset: TryonTrainDataset,
@@ -199,14 +355,32 @@ def training_loop(
     progress_fn=None,
     abort_fn=None,
     device="cuda",
+    eval_metrics: Sequence[str] = (),
+    eval_ticks: int = 10,
+    eval_items: Optional[int] = None,
+    detector=None,
+    metric_cache_dir: Optional[str] = None,
 ):
     """Train on `device` (the card unless the caller asks for the CPU);
     returns the final TrainState. `vgg`: a VGG19Features module on that
     device for the perceptual loss, or None to run without it.
 
+    `eval_metrics` ("fid", "kid", "fid_tryon") are evaluated every
+    `eval_ticks` ticks and at the end by a `TrainingEvaluator` over the
+    first `eval_items` items (default `cfg.metric_items`), which the
+    sampler then skips; `detector` is the InceptionV3 module on `device`
+    (the JAX loop's `detector_params`), `metric_cache_dir` the disk cache
+    of the held-out reals' stats. The results go into that tick's row of
+    stats.jsonl and its status line.
+
     In a process group, every rank calls this with the same arguments and
     its own card; only rank 0 writes into `run_dir` (the others may pass
     None), and `abort_fn` must answer alike on every rank."""
+    if eval_items is None:
+        eval_items = cfg.metric_items
+    evaluation = dict(metrics=tuple(eval_metrics), ticks=eval_ticks,
+                      items=eval_items, detector=detector,
+                      cache_dir=metric_cache_dir)
     world = tdist.world_size()
     if world != cfg.data_axis_size:
         raise ValueError(f"TrainConfig.data_axis_size={cfg.data_axis_size} "
@@ -221,7 +395,7 @@ def training_loop(
         return _training_loop_impl(
             cfg, dataset, run_dir, vgg, resume_path, total_steps,
             tick_interval, snapshot_ticks, num_workers, seed, progress_fn,
-            abort_fn, torch.device(device))
+            abort_fn, torch.device(device), evaluation)
     finally:
         sys.stdout.close()
         sys.stdout = stream
@@ -230,6 +404,7 @@ def training_loop(
 def _training_loop_impl(
     cfg, dataset, run_dir, vgg, resume_path, total_steps, tick_interval,
     snapshot_ticks, num_workers, seed, progress_fn, abort_fn, device,
+    evaluation,
 ):
     rank, world = tdist.rank(), tdist.world_size()
     is_chief = rank == 0
@@ -245,8 +420,22 @@ def _training_loop_impl(
         cfg = dataclasses.replace(cfg, ema_rampup=None)
 
     train_step = make_train_step(cfg, vgg)
+    # The evaluator's items (dataset[0..holdout)) are left out of every
+    # rank's training stream: a true held-out set.
+    holdout = (min(evaluation["items"],
+                   max(len(dataset) - cfg.batch_size, 0))
+               if evaluation["metrics"] else 0)
+    evaluator = None
+    if evaluation["metrics"] and is_chief:
+        if evaluation["detector"] is None:
+            raise ValueError("in-training metrics need a detector "
+                             "(the InceptionV3 module)")
+        evaluator = TrainingEvaluator(
+            cfg, dataset, evaluation["detector"], num_items=holdout,
+            metrics=evaluation["metrics"],
+            cache_dir=evaluation["cache_dir"])
     loader = ParallelLoader(dataset, cfg.batch_per_device, num_workers, seed,
-                            rank=rank, num_replicas=world)
+                            rank=rank, num_replicas=world, holdout=holdout)
     batches = iter(loader)
     logger = JsonlLogger(run_dir) if is_chief else None
     collector = Collector()
@@ -312,6 +501,15 @@ def _training_loop_impl(
                     flush=True)
                 row = {"step": step + 1, "kimg": cur_nimg / 1000,
                        "sec_per_kimg": sec_per_kimg, **collector.as_dict()}
+                tick_idx = (step + 1) // tick_interval
+                if evaluator is not None and (
+                        tick_idx % evaluation["ticks"] == 0
+                        or step == total_steps - 1):
+                    results = evaluator(state)
+                    row.update(results)
+                    print("metrics " + " ".join(
+                        f"{k} {v:.2f}" for k, v in results.items()),
+                        flush=True)
                 if logger is not None:
                     logger.write(row)
                 if tb_writer is not None:
@@ -327,7 +525,6 @@ def _training_loop_impl(
                 t_tick = time.time()
                 images_at_tick = cur_nimg
 
-                tick_idx = (step + 1) // tick_interval
                 if is_chief and (tick_idx % snapshot_ticks == 0
                                  or step == total_steps - 1):
                     # with ranks, no sample grid: each holds only its rows

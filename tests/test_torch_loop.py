@@ -338,13 +338,24 @@ def test_cli_config_follows_the_jax_cli():
 
 
 @pytest.mark.parametrize("flag,value,name", [
-    ("--metrics", "fid", "--metrics"), ("--tryon-grid", "3", "--tryon-grid"),
-    ("--trace", "dir", "--trace")])
+    ("--tryon-grid", "3", "--tryon-grid"), ("--trace", "dir", "--trace")])
 def test_cli_deferred_flags_raise_by_name(flag, value, name, tmp_path):
     with pytest.raises(NotImplementedError, match=name):
         cli.main(["--outdir", str(tmp_path), "--data", "d", flag, value,
                   "--dry-run"])
     assert os.listdir(tmp_path) == []        # nothing was started
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--metrics", "fid"], "--inception"),
+    (["--metrics", "fid,pr", "--inception", "i.npz"], "'pr'")])
+def test_cli_metrics_need_inception_and_known_names(argv, match, tmp_path):
+    """--metrics (ported with the evaluator) takes fid, kid and fid_tryon
+    and needs --inception; a bad request stops before the run starts."""
+    with pytest.raises(ValueError, match=match):
+        cli.main(["--outdir", str(tmp_path), "--data", "d", "--dry-run"]
+                 + argv)
+    assert os.listdir(tmp_path) == []
 
 
 @pytest.mark.parametrize("flag,value,want", [
