@@ -8,9 +8,10 @@ EMA, ADA), a training run through the command line (dataset files on
 disk, both loaders, the loop, snapshots, an exact resume) and the training
 options (grad_accum, Gpl, the contextual loss, the doubled parsing-D
 phase, freeze-D, the shared and the reused fakes), data-parallel training
-over ranks and evaluation (cli.calc_metrics's five metrics and the
-in-training metrics of cli.train) -- with seeded random weights and seeded
-synthetic inputs, in phases:
+over ranks, evaluation (cli.calc_metrics's five metrics and the
+in-training metrics of cli.train), the matmul warps and the training run's
+try-on grid and trace -- with seeded random weights and seeded synthetic
+inputs, in phases:
 
   1. device      -- fails without CUDA; prints the card's name, power limit
   2. build       -- compiles csrc/conv3x3.cu (K1) and csrc/shift.cu (K2, K3)
@@ -129,6 +130,20 @@ synthetic inputs, in phases:
                     shape the detectors launched (Inception 64->96 at
                     35x35, VGG16 at 224 and LPIPS at 256) against plain,
                     timed in turns with plain and cuDNN, with its bound
+ 16. matmul-warps -- TryonPipeline.run_batch at batch 8, the fashion G,
+                    through warp_impl gather, matmul and matmul_bf16, on a
+                    tiled batch (cut windows taken) and a full-path one:
+                    K1's 26 launches a batch, each matmul impl's warped
+                    planes against the gather's at the JAX package's budget
+                    (values off by more than 4.0 on the 255 scale: under
+                    2% / 3%), the finetune image's gap to the gather path,
+                    the assemble ms of each impl (CUDA events), peak
+                    memory; cli.dataset_tool packs a synthetic root into a
+                    zip and cli.train --data <zip> runs 2 steps at 512 px
+                    with --tryon-grid 3 --trace DIR (the grid's size and
+                    seconds, the Chrome trace parsed and naming K1, exact
+                    launches); the patch D and five legacy layers forward
+                    and backward, card against CPU (1e-5 of the scale)
 
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; the one
@@ -2411,6 +2426,345 @@ def phase_evaluation(k1, shift, dev="cuda", small=False):
     return launched, rows
 
 
+WARP_IMPLS = ("gather", "matmul", "matmul_bf16")
+# the JAX package's own budget for the matmul warps against the gather
+# (tests/test_device_warp.py:121-155): the share of values of each plane
+# off by more than 4.0 on the 0..255 scale
+WARP_BUDGET = {"matmul": 0.02, "matmul_bf16": 0.03}
+WARP_PLANES = ("norm_img", "norm_img_lower", "denorm_upper_img",
+               "denorm_lower_img")
+GRID_K = 3             # phase 16's cross-pair grid: 3 x 3 try-ons
+PACKED_PERSONS = 8     # persons of the root dataset_tool packs
+LEGACY_TOL = 1e-5      # card vs CPU, of the output's (gradient's) scale
+
+
+def _warp_planes(dw, ing, impl, tiled, windowed):
+    """The four warped planes of an ingested upper-mode batch, as
+    assemble_inputs_device computes them with `impl`."""
+    from pasta_tpu_torch.data.host import CUT_WINDOW
+
+    args = [ing[k] for k in ("upper_img", "lower_img", "upper_mask",
+                             "lower_mask", "sleeve", "upper_cut_m",
+                             "lower_cut_m", "paste_m_inv", "part_valid")]
+    kw = dict(erode_k=8, track_wo_sleeve=True, warp_impl=impl,
+              sleeve_valid=ing.get("sleeve_valid"))
+    if not tiled:
+        norm = dw.normalize_patches_device(*args, **kw)
+    else:
+        if windowed:
+            kw.update(cut_window_offsets=ing["cut_window_offsets"],
+                      cut_window=CUT_WINDOW)
+        norm = dw.normalize_patches_device_tiled(*args, ing["tile_offsets"],
+                                                 **kw)
+    return {k: norm[k].float() for k in WARP_PLANES}
+
+
+def _card_vs_cpu(make, inputs, dev, tag, per_crop=False, **kw):
+    """A module built on the CPU and its copy on `dev`, forward and
+    backward (a seeded cotangent on the first output) on the same inputs:
+    outputs, input and parameter gradients within LEGACY_TOL of their
+    scale. With `per_crop`, the first input's gradient is held crop by
+    crop and one crop may differ (a leaky-ReLU input within rounding of 0
+    takes the other slope on one side). Returns (the largest error, the
+    crops whose gradient took the other slope)."""
+    import copy
+
+    cpu = make()
+    card = copy.deepcopy(cpu).to(dev)
+    worst = 0.0
+    sides = []
+    for mod, where in ((cpu, "cpu"), (card, dev)):
+        xs = [x.detach().to(where).requires_grad_(x.is_floating_point())
+              for x in inputs]
+        out = mod(*xs, **kw)
+        outs = [o for o in (out if isinstance(out, tuple) else (out,))
+                if o is not None]
+        cot = torch.randn(outs[0].shape, generator=torch.Generator()
+                          .manual_seed(16)).to(where)
+        (outs[0] * cot).sum().backward()
+        sides.append(([o.detach().cpu() for o in outs],
+                      [x.grad.cpu() for x in xs if x.grad is not None],
+                      [p.grad.cpu() for p in mod.parameters()
+                       if p.grad is not None]))
+    (o_c, xg_c, pg_c), (o_d, xg_d, pg_d) = sides
+    flipped = 0
+    for kind, a, b in (("output", o_d, o_c), ("input grad", xg_d, xg_c),
+                       ("param grad", pg_d, pg_c)):
+        check(len(a) == len(b) and len(a) > 0,
+              f"legacy {tag}: {kind}s {len(a)} / {len(b)}")
+        # a gradient's scale is that of the whole gradient: a bias ahead
+        # of a batch norm has a gradient of rounding noise around 0
+        scale = max(max(float(y.abs().max()) for y in b), 1e-30)
+        for i, (x, y) in enumerate(zip(a, b)):
+            if kind == "output":
+                scale = max(float(y.abs().max()), 1e-30)
+            err = (x - y).abs()
+            if per_crop and kind == "input grad" and i == 0:
+                crop = err.reshape(err.shape[0] * err.shape[1], -1)
+                flipped = int((crop.amax(1) > LEGACY_TOL * scale).sum())
+                check(flipped <= 1, f"legacy {tag}: {flipped} crops' "
+                      "gradients beyond the bound")
+                continue
+            if kind == "param grad" and flipped:
+                continue    # the flipped crop moves every weight's gradient
+            e = float(err.max()) / scale
+            worst = max(worst, e)
+            check(e <= LEGACY_TOL, f"legacy {tag}: {kind} {i} card vs CPU "
+                  f"{e:.3g} of its scale > {LEGACY_TOL}")
+    return worst, flipped
+
+
+def phase_matmul_warps(k1, shift, dev="cuda", small=False):
+    """The matmul warps at full width and the training run's new pieces.
+    (a) TryonPipeline.run_batch at batch 8, the fashion G, through the
+    gather, "matmul" and "matmul_bf16", on a tiled batch (cut windows
+    taken) and a full-path batch: K1's 26 launches a batch, the warped
+    planes of each matmul impl against the gather's at the JAX package's
+    budget, the finetune image's gap to the gather path (printed), the
+    assemble ms of each impl (CUDA events) and its peak memory. (b)
+    cli.dataset_tool packs a synthetic root into a zip; cli.train --data
+    <zip> runs 2 steps at 512 px with --tryon-grid 3 --trace DIR: the
+    grid's size and seconds, the trace parsed, K1's kernels named in it,
+    exact launches. (c) the patch D and a few legacy layers, forward and
+    backward, card against CPU at a narrow size. `small` shrinks the
+    batch, the G and the training config (a CPU rehearsal). Returns the
+    launches (K1 fwd, K1 dX, K2, K3) of the phase."""
+    from pasta_tpu_torch.cli import bench_train
+    from pasta_tpu_torch.cli import dataset_tool
+    from pasta_tpu_torch.cli import train as cli_train
+    from pasta_tpu_torch.data import device_warp as dw
+    from pasta_tpu_torch.data.synthetic import write_dataset_root
+    from pasta_tpu_torch.models import Generator, PatchCoOccurrenceDiscriminator
+    from pasta_tpu_torch.nn import legacy as nl
+    from pasta_tpu_torch.serving import (TryonPipeline,
+                                         assemble_inputs_device,
+                                         ingest_device)
+    from pasta_tpu_torch.train import loop as tloop
+
+    card = torch.device(dev).type == "cuda"
+    t_phase = time.perf_counter()
+    launched = collections.Counter()
+
+    # (a) the warps at full width
+    batch = 1 if small else BATCH
+    g_cfg = (dict(channel_base=2048, channel_max=128) if small
+             else dict(num_bf16_res=3))
+    model = Generator(seed=0, **g_cfg).eval().to(dev)
+    pipes = {impl: TryonPipeline(model, mode="upper", warp_impl=impl)
+             for impl in WARP_IMPLS}
+    full_seeds = [101] if small else range(100, 100 + batch)  # 101 misfits
+    batches = {"tiled": _items(pipes["gather"], range(batch), 3.0),
+               "full": _items(pipes["gather"], full_seeds, 40.0)}
+    check(all(bool(it["tiles_fit"]) and bool(it["cut_fits"])
+              for it in batches["tiled"]),
+          "matmul-warps: the tiled batch does not fit its tiles and windows")
+    check(not all(bool(it["tiles_fit"]) for it in batches["full"]),
+          "matmul-warps: the full-path batch fits its paste tiles")
+    outs, peaks, ms, apeaks = {}, {}, {}, {}
+    bench_train.reset_kernel_counts()
+    for impl in WARP_IMPLS:
+        for path, items in batches.items():
+            if card:
+                torch.cuda.reset_peak_memory_stats()
+            out = pipes[impl].run_batch(items)
+            _sync(dev)
+            peaks[impl, path] = _peak_gib(dev)
+            check(pipes[impl].last_tiled == (path == "tiled")
+                  and pipes[impl].last_cut_windowed == (path == "tiled"),
+                  f"matmul-warps: {impl} {path} path selection")
+            check(bool(torch.isfinite(out).all()),
+                  f"matmul-warps: {impl} {path} non-finite output")
+            outs[impl, path] = out.float().cpu()
+    runs = len(WARP_IMPLS) * len(batches)
+    counts = _launches(k1)
+    check(not card or counts[0] == K1_PER_BATCH * runs,
+          f"matmul-warps: K1 launches {counts[0]} != {K1_PER_BATCH} x {runs}")
+    launched.update(dict(zip("fdab", counts[:4])))
+    lines = []
+    for path, items in batches.items():
+        tiled = path == "tiled"
+        ing = ingest_device(pipes["gather"]._upload(items))
+        planes = {impl: _warp_planes(dw, ing, impl, tiled, tiled)
+                  for impl in WARP_IMPLS}
+        for impl in WARP_IMPLS:
+            if card:
+                def assemble():
+                    return assemble_inputs_device(
+                        ing, "upper", tiled=tiled, warp_impl=impl,
+                        cut_windowed=tiled)
+
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                assemble()
+                torch.cuda.synchronize()
+                apeaks[impl, path] = (torch.cuda.max_memory_allocated()
+                                      - base) / 2 ** 30
+                ms[impl, path] = cuda_ms(assemble, 3)
+            if impl == "gather":
+                continue
+            shares = {k: float(((planes[impl][k] - planes["gather"][k])
+                                .abs() > 4.0).float().mean())
+                      for k in WARP_PLANES}
+            for k, share in shares.items():
+                # over the batch of 8, as phase 4's: one synthetic item
+                # alone reaches 2.45% (the JAX package's warps too), so
+                # the one-item rehearsal prints the shares only
+                check(small or share < WARP_BUDGET[impl],
+                      f"matmul-warps: {impl} {path} {k}: {100 * share:.3f}% "
+                      f"of values off the gather's by > 4.0 (budget "
+                      f"{100 * WARP_BUDGET[impl]:.0f}%)")
+            frac, mean = _budget(outs[impl, path], outs["gather", path])
+            lines.append(
+                f"{impl} {path}: planes off the gather's by > 4.0 "
+                + ", ".join(f"{k} {100 * v:.3f}%" for k, v in shares.items())
+                + f" (budget {100 * WARP_BUDGET[impl]:.0f}%) | finetune vs "
+                f"gather {100 * frac:.3f}% beyond 1e-2 of the range, mean "
+                f"{mean:.3g} of it")
+        del ing, planes
+    for line in lines:
+        print(f"[matmul-warps] {line}", flush=True)
+    print(f"[matmul-warps] run_batch x{runs} at batch {batch} ({', '.join(WARP_IMPLS)}"
+          f"; tiled with cut windows, full path) | K1 launches {counts[0]} = "
+          f"{K1_PER_BATCH} x {runs} | assemble ms (CUDA events) "
+          + ", ".join(f"{i} {p} {ms.get((i, p), float('nan')):.2f}"
+                      for i in WARP_IMPLS for p in batches)
+          + " | peak GiB of each run_batch "
+          + ", ".join(f"{i} {p} {peaks[i, p]:.2f}" for i in WARP_IMPLS
+                      for p in batches)
+          + " | the assembly's own peak GiB above what it is given "
+          + ", ".join(f"{i} {p} {apeaks.get((i, p), float('nan')):.2f}"
+                      for i in WARP_IMPLS for p in batches), flush=True)
+    del model, pipes, outs
+    _free(dev)
+
+    # (b) dataset_tool -> cli.train --tryon-grid --trace
+    tmp = tempfile.mkdtemp(prefix="pasta_smoke_grid_")
+    try:
+        src = os.path.join(tmp, "src")
+        names = write_dataset_root(src, PACKED_PERSONS, 1600)
+        packed = os.path.join(tmp, "packed.zip")
+        t0 = time.perf_counter()
+        dataset_tool.main(["--source", src, "--dest", packed])
+        t_pack = time.perf_counter() - t0
+        import zipfile
+        with zipfile.ZipFile(packed) as zf:
+            members = zf.namelist()
+        check(sum(m.startswith("image/") for m in members) == len(names)
+              and "dataset.json" in members,
+              f"dataset_tool packed {len(members)} members")
+        grid_s = []
+        grid = tloop.save_cross_pair_grid
+
+        def timed_grid(*args, **kw):
+            _sync(dev)
+            t0 = time.perf_counter()
+            path = grid(*args, **kw)
+            _sync(dev)
+            grid_s.append(time.perf_counter() - t0)
+            return path
+
+        trace = os.path.join(tmp, "trace")
+        tloop.save_cross_pair_grid = timed_grid
+        bench_train.reset_kernel_counts()
+        t0 = time.perf_counter()
+        try:
+            run = cli_train.main([
+                "--outdir", os.path.join(tmp, "runs"), "--cfg",
+                "smoke" if small else "fashion", "--batch",
+                "2" if small else str(TRAIN_BATCH), "--tick", "1", "--snap",
+                "100", "--workers", "4", "--data", packed, "--loader-impl",
+                "host" if small else "device",  # device: 512 px only
+                "--max-steps", "2", "--tryon-grid", str(GRID_K),
+                "--trace", trace, "--device", dev])
+            _sync(dev)
+        finally:
+            tloop.save_cross_pair_grid = grid
+        seconds = time.perf_counter() - t0
+        counts = _launches(k1)
+        launched.update(dict(zip("fdab", counts[:4])))
+        with open(os.path.join(run, "stats.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        check([r["step"] for r in rows] == [1, 2],
+              f"matmul-warps: traced run's stats rows {rows}")
+        res = 64 if small else 512
+        import PIL.Image
+        img = PIL.Image.open(os.path.join(run, "tryon_grid000002.png"))
+        side = (GRID_K + 1) * res + 4
+        check(img.size == (side, side) and len(grid_s) == 1,
+              f"matmul-warps: grid {img.size}, {len(grid_s)} grids")
+        trace_file = os.path.join(trace, "trace.json")
+        mb = os.path.getsize(trace_file) / 2 ** 20
+        t0 = time.perf_counter()
+        with open(trace_file) as f:
+            events = json.load(f)["traceEvents"]
+        t_parse = time.perf_counter() - t0
+        k1_events = [e for e in events if e.get("cat") == "kernel"
+                     and "conv3x3" in e.get("name", "")]
+        check(not card or k1_events,
+              "matmul-warps: no K1 kernel (conv3x3) in the Chrome trace")
+        first, rest = STEP_LAUNCHES["default", "r1"], STEP_LAUNCHES[
+            "default", "regular"]
+        draws = (2 * G_FWD_K1, 0, 0, 0, 2 * G_FWD_K1)  # snapshot + grid
+        want = tuple(a + b + c for a, b, c in zip(first, rest, draws))
+        check(small or not card or counts == want,
+              f"matmul-warps: traced run launches {counts} != {want}")
+        print(f"[matmul-warps] dataset_tool packed {len(names)} persons "
+              f"({len(members)} members) in {t_pack:.2f} s | cli.train "
+              f"--data packed.zip --max-steps 2 "
+              f"--tryon-grid {GRID_K} --trace: {seconds:.1f} s, grid "
+              f"{img.size[0]} x {img.size[1]} in {grid_s[0]:.2f} s, trace "
+              f"{mb:.1f} MB ({len(events)} events, {len(k1_events)} K1 "
+              f"kernels, parsed in {t_parse:.1f} s) | launches K1 fwd/dX, "
+              f"K2, K3, K1 fp32 {counts} = R1 step {first} + {rest} + the "
+              f"snapshot's and the grid's G forwards", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free(dev)
+
+    # (c) the patch D and legacy layers, card vs CPU
+    gen = torch.Generator().manual_seed(17)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen)
+
+    bench_train.reset_kernel_counts()
+    errs = {}
+    errs["patch D"], flipped = _card_vs_cpu(
+        lambda: PatchCoOccurrenceDiscriminator(
+            crop_size=32, num_crops=4, channel_max=64, seed=0),
+        [rand(2, 4, 32, 32, 3), rand(2, 2, 32, 32, 3)], dev, "patch D",
+        per_crop=True)
+    counts = _launches(k1)
+    check(not card or counts[:2] == (8, 8),
+          f"matmul-warps: patch D K1 fwd / dX {counts[:2]} != (8, 8)")
+    launched.update(dict(zip("fdab", counts[:4])))
+    mask = (rand(2, 16, 16, 1) > 0).float()
+    errs["PartialResBlock"], _ = _card_vs_cpu(
+        lambda: nl.PartialResBlock(8, 16, down=2), [rand(2, 16, 16, 8), mask],
+        dev, "PartialResBlock")
+    errs["SelfAttention"], _ = _card_vs_cpu(
+        lambda: nl.SelfAttention(16), [rand(2, 8, 8, 16)], dev,
+        "SelfAttention")
+    errs["SpadeModulatedConv2d"], _ = _card_vs_cpu(
+        lambda: nl.SpadeModulatedConv2d(8, 12),
+        [rand(2, 8, 8, 8), rand(2, 8, 8, 8)], dev, "SpadeModulatedConv2d")
+    errs["MaskPredictingToRGB"], _ = _card_vs_cpu(
+        lambda: nl.MaskPredictingToRGB(8, 3, 16, is_last=True,
+                                       deep_heads=True),
+        [rand(2, 8, 8, 8), rand(2, 16)], dev, "MaskPredictingToRGB")
+    errs["ResBlockDecoder"], _ = _card_vs_cpu(
+        lambda: nl.ResBlockDecoder(16, 8), [rand(2, 8, 8, 16)], dev,
+        "ResBlockDecoder", train=True)
+    print("[matmul-warps] card vs CPU, forward and backward (largest error "
+          f"of its scale, bound {LEGACY_TOL}; the patch D's K1 fwd / dX "
+          f"{counts[:2]}, {flipped} crop's gradient flipped): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
+    print(f"[matmul-warps] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return tuple(launched[k] for k in "fdab")
+
+
 def main():
     smi = phase_device()
     from pasta_tpu_torch.ops._build import pin_fp32_numerics
@@ -2433,6 +2787,7 @@ def main():
     dist_counts, _ = phase_dist()
     infer_counts, infer_rows = phase_inference(k1, shift)
     eval_launches, eval_rows = phase_evaluation(k1, shift)
+    warp_counts = phase_matmul_warps(k1, shift)
     k1_rows = rows + train_rows["K1"] + infer_rows + eval_rows
 
     def total(rs, key):
@@ -2462,13 +2817,15 @@ def main():
     # run through the command line and its run with the options, the
     # options' steps, the data-parallel steps summed over their ranks, the
     # inference runs through cli.test, the evaluation's serving run,
-    # metrics and training run with the metrics), summed
+    # metrics and training run with the metrics, the matmul warps' serving
+    # batches, the traced training run with its grid and the patch D),
+    # summed
     print(json.dumps({"kernels": [
         entry("conv3x3_valid", "pasta_tpu_torch/csrc/conv3x3.cu",
               "pasta_tpu/ops/pallas_conv.py:139",
               launches + k1_total + sum(run_counts[:2]) + sum(opt_run[:2])
               + sum(opt_counts[:2]) + sum(dist_counts[:2]) + infer_counts[0]
-              + eval_launches,
+              + eval_launches + sum(warp_counts[:2]),
               k1_rows, opt_errs["K1"], launches_serving=launches,
               launches_train=counts[0],
               launches_dx=counts[1], launches_train_run=run_counts[0],
@@ -2485,6 +2842,8 @@ def main():
               launches_inference_fp32=infer_counts[1],
               ms_inference=total(infer_rows, "ms"),
               launches_evaluation=eval_launches,
+              launches_matmul_warps=warp_counts[0],
+              launches_matmul_warps_dx=warp_counts[1],
               ms_evaluation=total(eval_rows, "ms"),
               ms_fp32=total(fp32, "ms"), ms_bf16=total(bf16, "ms"),
               bound_ms_fp32=total(fp32, "bound_ms"),
@@ -2494,19 +2853,21 @@ def main():
         entry("shift_fwd", "pasta_tpu_torch/csrc/shift.cu",
               "pasta_tpu/ops/affine_warp.py:142",
               counts[2] + run_counts[2] + opt_run[2] + opt_counts[2]
-              + dist_counts[2],
+              + dist_counts[2] + warp_counts[2],
               train_rows["K2"], opt_errs["K2"], launches_train=counts[2],
               launches_train_run=run_counts[2], launches_options=opt_counts[2],
               launches_options_run=opt_run[2],
-              launches_dist=dist_counts[2]),
+              launches_dist=dist_counts[2],
+              launches_matmul_warps=warp_counts[2]),
         entry("shift_bwd", "pasta_tpu_torch/csrc/shift.cu",
               "pasta_tpu/ops/affine_warp.py:181",
               counts[3] + run_counts[3] + opt_run[3] + opt_counts[3]
-              + dist_counts[3],
+              + dist_counts[3] + warp_counts[3],
               train_rows["K3"], opt_errs["K3"], launches_train=counts[3],
               launches_train_run=run_counts[3], launches_options=opt_counts[3],
               launches_options_run=opt_run[3],
-              launches_dist=dist_counts[3]),
+              launches_dist=dist_counts[3],
+              launches_matmul_warps=warp_counts[3]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,9 @@ evaluation the try-on pipeline uses).
 [clothes | person | generated] composite that cli/test.py writes) before
 feature extraction. `ppl` synthesizes along the style interpolation path
 instead of reading folders: it builds the fashion Generator, loads
---network as cli/test.py does (a JAX generator .npz or a cli.train
-ckpt-N.pt; seeded random weights without it) and reads its condition
+--network as cli/test.py does (a JAX generator .npz, a cli.train
+ckpt-N.pt or the reference's .pkl snapshot; seeded random weights without
+it) and reads its condition
 pairs from --dataroot / --testtxt.
 
 --detector and --vgg16-detector take torchvision-keyed state dicts, flat

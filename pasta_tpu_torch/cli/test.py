@@ -11,10 +11,12 @@ tests do), and without a card and without that flag the command refuses
 to run.
 
 --network: a generator `.npz` of the JAX package
-(`pasta_tpu/io/npz_ckpt.py::save_npz_variables`), or a `ckpt-N.pt` of
-`pasta_tpu_torch.cli.train` (its G-EMA); without it, the port's seeded
-random generator (a smoke of the data path). The reference's `.pkl` and
-the JAX package's orbax directories raise by name.
+(`pasta_tpu/io/npz_ckpt.py::save_npz_variables`), a `ckpt-N.pt` of
+`pasta_tpu_torch.cli.train` (its G-EMA), or the reference's
+`network-snapshot-*.pkl` (its G_ema; unpickling imports the reference tree
+at $PASTA_REFERENCE_ROOT, io/legacy_pkl.py); without it, the port's seeded
+random generator (a smoke of the data path). The JAX package's orbax
+directories raise by name.
 
 --pipeline parity: host preprocessing (`data/testsets.py`, the reference
 data path) and the generator, the tail batch padded. --pipeline serving:
@@ -75,11 +77,11 @@ def load_generator_weights(model, network_path):
             "package; write it as a .npz with pasta_tpu.io.npz_ckpt."
             "save_npz_variables")
     if network_path.endswith(".pkl"):
-        raise NotImplementedError(
-            f"--network {network_path}: the reference's pickle needs its "
-            "source tree; io/legacy_pkl.py is not ported (ROADMAP queue 1 "
-            "item 12)")
-    if network_path.endswith(".npz"):
+        # the reference's snapshot; unpickling imports its source tree
+        from ..io.legacy_pkl import load_reference_pickle_generator
+
+        state = load_reference_pickle_generator(network_path)
+    elif network_path.endswith(".npz"):
         from ..io.from_jax import load_npz
 
         state = load_npz(network_path)
@@ -88,7 +90,8 @@ def load_generator_weights(model, network_path):
 
         state = load_module(network_path, "g_ema")
     else:
-        raise ValueError(f"--network {network_path}: not a .npz or .pt")
+        raise ValueError(f"--network {network_path}: not a .npz, .pt or "
+                         ".pkl")
     model.load_state_dict(state, strict=True)
     return model
 

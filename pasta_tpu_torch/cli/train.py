@@ -34,16 +34,21 @@ the held-out reals' detector stats (the JAX CLI defaults it to
 ~/.cache/pasta_tpu/metrics; here there is no cache unless asked for). The
 results go into stats.jsonl and the status lines.
 
-Flags of options the port has not got yet are accepted and raise
-NotImplementedError with the option's name when set off their default:
---tryon-grid, --trace. The JAX CLI's --step-mode, --remat*,
---d-remat, --vgg-remat and --ada-impl steer its TPU program and are not
-flags here.
+--tryon-grid K writes G-EMA's cross-pair try-on grid of the first K
+persons beside each snapshot (train/loop.py::save_cross_pair_grid; not
+with ranks). --trace DIR runs the loop under torch.profiler (CPU and, on
+the card, CUDA activity) and writes its Chrome trace to DIR/trace.json;
+as the JAX CLI does, a traced run stops after --max-steps or 3 steps.
+With ranks, rank 0 alone is traced.
+
+The JAX CLI's --step-mode, --remat*, --d-remat, --vgg-remat and
+--ada-impl steer its TPU program and are not flags here.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -122,7 +127,9 @@ def parse_args(argv=None):
                         "decode + scalar geometry only)")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="microbatch accumulation rounds per step")
-    p.add_argument("--trace", default=None)
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the first "
+                        "steps (--max-steps or 3) to DIR/trace.json")
     p.add_argument("--metrics", default="none",
                    help="comma-separated in-training metrics "
                         "(fid,kid,fid_tryon) or 'none'; evaluated on a "
@@ -139,7 +146,9 @@ def parse_args(argv=None):
     p.add_argument("--inception", default=None,
                    help="inception detector weights (.pth/.npz) for "
                         "metrics")
-    p.add_argument("--tryon-grid", type=int, default=0, metavar="K")
+    p.add_argument("--tryon-grid", type=int, default=0, metavar="K",
+                   help="write the cross-pair try-on grid of the first K "
+                        "persons at each snapshot (0: none)")
     p.add_argument("--dry-run", action="store_true")
     return p.parse_args(argv)
 
@@ -155,19 +164,6 @@ def eval_metrics_of(args):
         raise ValueError("--metrics needs --inception (the InceptionV3 "
                          "weights)")
     return metrics
-
-
-def _refuse_deferred(args):
-    """Loop-level options the port has not got yet (the TrainConfig ones
-    raise from TrainConfig.__post_init__ with their own names)."""
-    if args.tryon_grid != 0:
-        raise NotImplementedError(
-            f"--tryon-grid {args.tryon_grid}: the cross-pair grid is not "
-            "ported yet (only 0)")
-    if args.trace is not None:
-        raise NotImplementedError(
-            "--trace: not ported yet (cli/bench_train.py --profile traces "
-            "a step)")
 
 
 def world_of(args):
@@ -187,7 +183,6 @@ def world_of(args):
 def build_config(args):
     from ..train.config import TrainConfig, smoke_config
 
-    _refuse_deferred(args)
     eval_metrics_of(args)
     world = world_of(args)
     if args.cfg == "smoke":
@@ -352,14 +347,42 @@ def train(args, cfg, run_dir, device):
         from ..metrics.metric_main import load_detector
 
         detector = load_detector(args.inception, device)
-    training_loop(cfg, dataset, run_dir, vgg=vgg, resume_path=args.resume,
-                  total_steps=args.max_steps, tick_interval=args.tick,
-                  num_workers=args.workers, snapshot_ticks=args.snap,
-                  seed=args.seed, device=device, eval_metrics=eval_metrics,
-                  eval_ticks=args.metric_ticks, eval_items=args.metric_items,
-                  detector=detector,
-                  metric_cache_dir=(None if args.metric_cache in (None, "none")
-                                    else os.path.expanduser(args.metric_cache)))
+    total_steps = args.max_steps
+    traced = contextlib.nullcontext()
+    if args.trace is not None:
+        total_steps = args.max_steps or 3      # the JAX CLI's cap
+        if chief:
+            traced = profile_trace(args.trace, device)
+    with traced:
+        training_loop(
+            cfg, dataset, run_dir, vgg=vgg, resume_path=args.resume,
+            total_steps=total_steps, tick_interval=args.tick,
+            num_workers=args.workers, snapshot_ticks=args.snap,
+            seed=args.seed, device=device, eval_metrics=eval_metrics,
+            eval_ticks=args.metric_ticks, eval_items=args.metric_items,
+            detector=detector,
+            metric_cache_dir=(None if args.metric_cache in (None, "none")
+                              else os.path.expanduser(args.metric_cache)),
+            tryon_grid_k=args.tryon_grid)
+
+
+@contextlib.contextmanager
+def profile_trace(trace_dir, device):
+    """Run the block under torch.profiler -- CPU activity, and CUDA
+    activity when `device` is a card -- and write its Chrome trace to
+    `trace_dir`/trace.json (the JAX CLI's `jax.profiler.trace(DIR)`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    path = os.path.join(trace_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"trace: {path}", flush=True)
 
 
 if __name__ == "__main__":

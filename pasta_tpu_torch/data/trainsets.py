@@ -16,10 +16,11 @@ target: UvitonDatasetFull_512 (the reference's training/dataset.py:
 Training consumes the ERASED lower patch stack and the `for_train` bound map
 (training_loop_fullbody.py:551-553 unpacking).
 
-The port has one warp implementation (the bilinear gather), so the lean
-assembler takes no `warp_impl` and no `cut_windowed` yet: the cut windows
-serve only the JAX package's matmul warps. `batch_to_lean_inputs` still
-returns `(batch, tiled, windowed)`.
+The lean assembler takes the JAX package's `warp_impl` ("auto" is the
+bilinear gather, as off the TPU; "matmul" / "matmul_bf16" the one-hot
+two-pass of ops/projective_warp.py) and `cut_windowed`: the cut windows
+that `batch_to_lean_inputs` reports (`(batch, tiled, windowed)`) serve the
+matmul warps alone.
 """
 
 from __future__ import annotations
@@ -436,7 +437,8 @@ def batch_to_lean_inputs(items):
     return batch, tiled, windowed
 
 
-def assemble_train_batch_lean(raw, tiled=True):
+def assemble_train_batch_lean(raw, tiled=True, cut_windowed=True,
+                              warp_impl="auto"):
     """Device-side lean raw batch -> train-step inputs.
 
     `raw`: the batch of `batch_to_lean_inputs` as tensors on one device
@@ -447,7 +449,9 @@ def assemble_train_batch_lean(raw, tiled=True):
     (data/device_warp.py, bilinear gathers), sleeve mirroring, erasure +
     occlusion augmentation, gt parsing, and the final normalization/concat.
     tiled=True takes the fixed-tile paste; the caller must have checked
-    `tiles_fit` for every item (`batch_to_lean_inputs` does).
+    `tiles_fit` for every item (`batch_to_lean_inputs` does), and, for
+    cut_windowed=True on that path, `cut_fits`. warp_impl picks the warps
+    (data/device_warp.py::resolve_warp_impl).
     """
     from .device_cond import (draw_pose_device, palm_mask_device,
                               retain_mask_device, skin_median_device,
@@ -455,6 +459,7 @@ def assemble_train_batch_lean(raw, tiled=True):
     from .device_warp import (normalize_patches_device,
                               normalize_patches_device_tiled,
                               mirror_sleeves_device)
+    from .host import CUT_WINDOW
 
     parsing = raw["parsing"]
     b = parsing.shape[0]
@@ -475,8 +480,12 @@ def assemble_train_batch_lean(raw, tiled=True):
     args = (up * image_f, low * image_f, up * 255.0, low * 255.0, sleeve,
             raw["upper_cut_m"].float(), raw["lower_cut_m"].float(),
             raw["paste_m_inv"].float(), raw["part_valid"])
-    norm_kw = dict(erode_k=5, sleeve_valid=raw["sleeve_valid"])
+    norm_kw = dict(erode_k=5, warp_impl=warp_impl,
+                   sleeve_valid=raw["sleeve_valid"])
     if tiled:
+        if cut_windowed:
+            norm_kw.update(cut_window_offsets=raw["cut_window_offsets"],
+                           cut_window=CUT_WINDOW)
         norm = normalize_patches_device_tiled(*args, raw["tile_offsets"],
                                               **norm_kw)
     else:

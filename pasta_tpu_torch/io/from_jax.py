@@ -21,7 +21,8 @@ The detectors of the metrics: `inception_jax_to_state_dict` inverts
 `metrics/inception.py::import_inception_torch_state` and
 `vgg16_jax_to_state_dict` inverts `metrics/vgg16.py::import_vgg16_torch_state`
 (the LPIPS lin weights included), so both packages run the same seeded
-detectors.
+detectors. `legacy_jax_to_state_dict` carries the layer zoo of
+`nn/legacy.py` (flax's own conv and batch-norm layers among them).
 
 The way back, for a training state saved by the port and read by the JAX
 package: `state_dict_to_jax` and `discriminator_state_dict_to_jax` are the
@@ -128,6 +129,31 @@ def vgg16_jax_to_state_dict(
     """The JAX package's VGG16 tree ({"features", "classifier", "lins"})
     -> the port's VGG16 state dict (torchvision keys, `lins.{k}`)."""
     return _detector_state(params)
+
+
+_LEGACY_LEAVES = {"kernel": "weight", "scale": "weight",
+                  "mean": "running_mean", "var": "running_var"}
+
+
+def legacy_jax_to_state_dict(
+        variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's `nn/legacy.py` variables ({"params"[,
+    "batch_stats"]}, numpy leaves) -> the port's `nn/legacy.py` state
+    dict: every 4-d leaf HWIO -> OIHW (flax's nn.Conv and nn.ConvTranspose
+    kernels and the zoo's own conv weights), flax's `kernel` -> `weight`
+    and nn.BatchNorm's scale / mean / var -> weight / running_mean /
+    running_var. The patch discriminator's layers are the port's own
+    (`jax_to_state_dict` carries them)."""
+    state = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _flatten(variables.get(collection, {})):
+            value = np.asarray(value, np.float32)
+            if value.ndim == 4:
+                value = value.transpose(3, 2, 0, 1)
+            leaf = _LEGACY_LEAVES.get(path[-1], path[-1])
+            state[".".join(path[:-1] + (leaf,))] = torch.from_numpy(
+                np.array(value))
+    return state
 
 
 def load_npz(path) -> Dict[str, torch.Tensor]:

@@ -2,5 +2,7 @@
 
 from .discriminator import Discriminator
 from .generator import Generator, SynthesisNetwork
+from .patch_discriminator import PatchCoOccurrenceDiscriminator
 
-__all__ = ["Discriminator", "Generator", "SynthesisNetwork"]
+__all__ = ["Discriminator", "Generator", "PatchCoOccurrenceDiscriminator",
+           "SynthesisNetwork"]

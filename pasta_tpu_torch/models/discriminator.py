@@ -20,6 +20,7 @@ import torch.nn as nn
 from ..nn.layers import (Conv2dLayer, FullyConnectedLayer, MinibatchStdLayer,
                          init_weights)
 from ..nn.mapping import MappingNetwork
+from ..shapes import assert_shape
 
 
 class DiscriminatorBlock(nn.Module):
@@ -120,10 +121,8 @@ class Discriminator(nn.Module):
         init_weights(self, torch.Generator().manual_seed(seed))
 
     def forward(self, img, c):
-        n, res = img.shape[0], self.img_resolution
-        if tuple(img.shape[1:]) != (res, res, self.img_channels):
-            raise ValueError(f"img: shape {tuple(img.shape)}, expected "
-                             f"(N, {res}, {res}, {self.img_channels})")
+        assert_shape(img, (None, self.img_resolution, self.img_resolution,
+                           self.img_channels), name="img")
         x = None
         for res in self.block_resolutions:
             x = getattr(self, f"b{res}")(x, img)

@@ -20,6 +20,7 @@ from ..nn.encoders import ConstEncoderNetwork, StyleEncoderNetwork
 from ..nn.layers import Conv2dLayer, ResBlock, init_weights
 from ..nn.mapping import MappingNetwork
 from ..nn.synthesis import SpadeResBlock, SynthesisBlockStyle, SynthesisBlockTexture
+from ..shapes import assert_shape
 
 
 def _channels_dict(resolutions, channel_base, channel_max):
@@ -258,19 +259,19 @@ class Generator(nn.Module):
         """Returns (coarse img, finetune img, pred_parsing), all NHWC fp32;
         with return_code=True also the style code."""
         n, res = c.shape[0], self.img_resolution
-        expect = {"c": (c, (n, res // 4, res // 4, 45)),
-                  "retain": (retain, (n, res, res, 6)),
-                  "pose": (pose, (n, res, res, 5)),
-                  "denorm_upper_input": (denorm_upper_input, (n, res, res, 3)),
-                  "denorm_lower_input": (denorm_lower_input, (n, res, res, 3)),
-                  "denorm_upper_mask": (denorm_upper_mask, (n, res, res, 1)),
-                  "denorm_lower_mask": (denorm_lower_mask, (n, res, res, 1))}
+        # input contracts (reference misc.assert_shape usage in the
+        # networks' forwards): an NHWC mix-up fails here, by name
+        assert_shape(c, (n, res // 4, res // 4, 45), name="c")
+        assert_shape(retain, (n, res, res, 6), name="retain")
+        assert_shape(pose, (n, res, res, 5), name="pose")
+        for nm, t in (("denorm_upper_input", denorm_upper_input),
+                      ("denorm_lower_input", denorm_lower_input)):
+            assert_shape(t, (n, res, res, 3), name=nm)
+        for nm, t in (("denorm_upper_mask", denorm_upper_mask),
+                      ("denorm_lower_mask", denorm_lower_mask)):
+            assert_shape(t, (n, res, res, 1), name=nm)
         if gt_parsing is not None:
-            expect["gt_parsing"] = (gt_parsing, (n, res, res, 1))
-        for name, (t, shape) in expect.items():
-            if tuple(t.shape) != shape:
-                raise ValueError(f"{name}: shape {tuple(t.shape)}, "
-                                 f"expected {shape}")
+            assert_shape(gt_parsing, (n, res, res, 1), name="gt_parsing")
         pose_feat = self.const_encoding(pose.to(self.enc_dtype))
         stylecode, feats, ws = self.style_and_ws(
             z, c, retain, truncation_psi=truncation_psi,

@@ -1,5 +1,5 @@
 """End-to-end try-on serving on one GPU: device preprocessing + generator
-(port of pasta_tpu/serving.py, gather warps).
+(port of pasta_tpu/serving.py).
 
 The host does decode / keypoint parsing / label routing / homography solves
 (numpy, data/host.py); everything else -- person conditioning rasters
@@ -22,9 +22,10 @@ from .data import device_cond as dc
 from .data.device_warp import (MASK_THRESH, bound_from_mask_top, erode,
                                mirror_sleeves_device, normalize_patches_device,
                                normalize_patches_device_tiled,
-                               zero_bound_above_mask_bottom,
+                               resolve_warp_impl, zero_bound_above_mask_bottom,
                                zero_conflicts_device)
-from .data.host import host_prepare
+from .data.host import CUT_WINDOW, host_prepare
+from .shapes import assert_batch_shapes
 
 _INGEST_F32_KEYS = ("upper_img", "lower_img", "upper_mask", "lower_mask",
                     "sleeve", "image", "pose", "retain_mask", "bound")
@@ -78,36 +79,43 @@ def ingest_device(host: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _check_host_shapes(host, res):
-    specs = {"image": (res, res, 3), "pose": (res, res, 3),
-             "upper_img": (res, res, 3), "lower_img": (res, res, 3),
-             "upper_mask": (res, res, 1), "lower_mask": (res, res, 1),
-             "sleeve": (res, res, 1), "retain_mask": (res, res, 1),
-             "bound": (res, res, 1), "skin_color": (3,)}
-    for key, shape in specs.items():
-        if tuple(host[key].shape[1:]) != shape:
-            raise ValueError(f"host[{key}]: shape {tuple(host[key].shape)}, "
-                             f"expected [B, {', '.join(map(str, shape))}]")
-
-
 def assemble_inputs_device(host: Dict[str, torch.Tensor], mode: str,
-                           tiled: bool = False):
-    """Device: warps (bilinear gather) + assembly -> generator input dict.
+                           tiled: bool = False, warp_impl: str = "auto",
+                           cut_windowed: bool = False):
+    """Device: warps + assembly -> generator input dict.
 
     tiled=True uses the fixed-tile paste path; callers must have verified
-    host["tiles_fit"] for every item. Accepts the raw host_prepare batch or
-    ingest_device's output.
+    host["tiles_fit"] for every item. warp_impl: "auto" (the gather, as
+    the JAX package resolves it off its TPU), "gather", "matmul" (one-hot
+    two-pass, fp32 weights) or "matmul_bf16" (bf16 weights).
+    cut_windowed=True (tiled only; callers must have verified
+    host["cut_fits"] for every item) reads each cut warp's source through
+    its CUT_WINDOW window, which serves the matmul warps alone. Accepts
+    the raw host_prepare batch or ingest_device's output.
     """
     host = ingest_device(host)
     res = host["image"].shape[1]
-    _check_host_shapes(host, res)
+    # input contracts (reference misc.assert_shape style): a transposed or
+    # mis-stacked host array fails here by name, not inside the warps
+    assert_batch_shapes(host, {
+        "image": (None, res, res, 3), "pose": (None, res, res, 3),
+        "upper_img": (None, res, res, 3), "lower_img": (None, res, res, 3),
+        "upper_mask": (None, res, res, 1), "lower_mask": (None, res, res, 1),
+        "sleeve": (None, res, res, 1),
+        "retain_mask": (None, res, res, 1), "bound": (None, res, res, 1),
+        "upper_cut_m": (None, None, 3, 3), "lower_cut_m": (None, None, 3, 3),
+        "paste_m_inv": (None, None, 3, 3), "skin_color": (None, 3),
+    }, name="host")
     erode_k = 8 if mode == "upper" else 5
     common = dict(erode_k=erode_k, track_wo_sleeve=(mode == "upper"),
-                  sleeve_valid=host.get("sleeve_valid"))
+                  warp_impl=warp_impl, sleeve_valid=host.get("sleeve_valid"))
     args = (host["upper_img"], host["lower_img"], host["upper_mask"],
             host["lower_mask"], host["sleeve"], host["upper_cut_m"],
             host["lower_cut_m"], host["paste_m_inv"], host["part_valid"])
     if tiled:
+        if cut_windowed and "cut_window_offsets" in host:
+            common.update(cut_window_offsets=host["cut_window_offsets"],
+                          cut_window=CUT_WINDOW)
         norm = normalize_patches_device_tiled(*args, host["tile_offsets"],
                                               **common)
     else:
@@ -176,40 +184,36 @@ class NoiseSeeds:
 
 class TryonPipeline:
     """Batched serving on one device: host_prepare -> ingest_device ->
-    assemble_inputs_device -> Generator, with the gather warps (the JAX
-    package's warp_impl="auto" off the TPU).
+    assemble_inputs_device -> Generator.
 
     `model` is the port's Generator with its weights loaded, on the device
     that serves. `cond` is "device" (the person conditioning computed in
     ingest_device; the port's serving default) or "host" (host_prepare
     rasters it; the JAX pipeline's default). `noise_mode` is "const",
     "random" or "none"; "random" draws the synthesis noise on the model's
-    device, one seed a batch from `seed` (NoiseSeeds). The matmul warps
-    and `mesh=` of the JAX pipeline are not ported (ROADMAP queue 1).
+    device, one seed a batch from `seed` (NoiseSeeds). `warp_impl` picks
+    the cut and paste warps (`assemble_inputs_device`; "auto" is the
+    gather). `mesh=` of the JAX pipeline is not ported (ROADMAP queue 1).
     """
 
     def __init__(self, model, mode="upper", noise_mode="const",
                  warp_impl="auto", cond="device", mesh=None, seed=0):
-        if warp_impl not in ("auto", "gather"):
-            raise NotImplementedError(
-                f"TryonPipeline(warp_impl={warp_impl!r}): the matmul warps "
-                "(pasta_tpu/ops/projective_warp.py) are not ported "
-                "(ROADMAP queue 1 item 9); the gather warps are 'auto'")
         if mesh is not None:
             raise NotImplementedError(
                 "TryonPipeline(mesh=...): a batch split over cards is not "
-                "ported (ROADMAP queue 1 item 8)")
+                "ported (ROADMAP queue 1, the port's last module)")
         if noise_mode not in ("const", "random", "none"):
             raise ValueError(f"noise_mode {noise_mode!r}")
         if cond not in ("device", "host"):
             raise ValueError(f"cond {cond!r}")
         self.model = model
         self.mode = mode
+        self.warp_impl = resolve_warp_impl(warp_impl)
         self.noise_mode = noise_mode
         self.cond = cond
         self.device = next(model.parameters()).device
         self._noise = NoiseSeeds(seed, self.device)
-        self.last_tiled = None
+        self.last_tiled = self.last_cut_windowed = None
 
     def prepare(self, person, clothes, use_sleeve_mask=True):
         return host_prepare(person, clothes, self.mode, use_sleeve_mask,
@@ -262,16 +266,17 @@ class TryonPipeline:
     def run_batch(self, host_items):
         """host_prepare dicts -> finetune images [B, H, W, 3] on the device
         (queued, not waited for). Takes the tiled paste path when every
-        item's quads fit.
-
-        The JAX pipeline also selects cut windows when every item's cut
-        quads fit (`cut_fits`); the windows feed only its matmul warps, and
-        its gather cut reads the full source either way, as this one does.
+        item's quads fit, and on it the cut windows when every item's cut
+        quads fit too (`cut_fits`); the windows feed only the matmul warps,
+        and the gather cut reads the full source either way.
         """
         tiled = all(bool(it["tiles_fit"]) for it in host_items)
-        self.last_tiled = tiled
+        cut_windowed = tiled and all(bool(it.get("cut_fits", False))
+                                     for it in host_items)
+        self.last_tiled, self.last_cut_windowed = tiled, cut_windowed
         inputs = assemble_inputs_device(
-            ingest_device(self._upload(host_items)), self.mode, tiled=tiled)
+            ingest_device(self._upload(host_items)), self.mode, tiled=tiled,
+            warp_impl=self.warp_impl, cut_windowed=cut_windowed)
         generator = (self._noise.next() if self.noise_mode == "random"
                      else None)
         _, finetune, _ = self.model(noise_mode=self.noise_mode,

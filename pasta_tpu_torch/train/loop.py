@@ -36,7 +36,10 @@ end of the run.
 With ranks, the chief alone builds and runs the evaluator; every rank's
 sampler skips the held-out items.
 
-Not here yet: the cross-pair try-on grid (`tryon_grid_k`).
+The cross-pair try-on grid (`tryon_grid_k`, `save_cross_pair_grid`):
+G-EMA's try-on of the first k persons in each other's garments, written
+beside each snapshot. With ranks it is skipped, as the JAX loop skips it
+under processes.
 """
 
 from __future__ import annotations
@@ -360,6 +363,7 @@ def training_loop(
     eval_items: Optional[int] = None,
     detector=None,
     metric_cache_dir: Optional[str] = None,
+    tryon_grid_k: int = 0,
 ):
     """Train on `device` (the card unless the caller asks for the CPU);
     returns the final TrainState. `vgg`: a VGG19Features module on that
@@ -373,6 +377,10 @@ def training_loop(
     of the held-out reals' stats. The results go into that tick's row of
     stats.jsonl and its status line.
 
+    `tryon_grid_k` > 0 writes `tryon_grid<step>.png` at each snapshot:
+    the cross-pair grid of the dataset's first k persons
+    (`save_cross_pair_grid`, mode "thirds"); not with ranks.
+
     In a process group, every rank calls this with the same arguments and
     its own card; only rank 0 writes into `run_dir` (the others may pass
     None), and `abort_fn` must answer alike on every rank."""
@@ -380,7 +388,7 @@ def training_loop(
         eval_items = cfg.metric_items
     evaluation = dict(metrics=tuple(eval_metrics), ticks=eval_ticks,
                       items=eval_items, detector=detector,
-                      cache_dir=metric_cache_dir)
+                      cache_dir=metric_cache_dir, tryon_grid_k=tryon_grid_k)
     world = tdist.world_size()
     if world != cfg.data_axis_size:
         raise ValueError(f"TrainConfig.data_axis_size={cfg.data_axis_size} "
@@ -459,9 +467,10 @@ def _training_loop_impl(
         for step in range(start_step, total_steps):
             with torch.no_grad():
                 if lean_loader:
-                    batch_np, tiled, _ = loaded
+                    batch_np, tiled, windowed = loaded
                     batch = assemble_train_batch_lean(
-                        upload_batch(batch_np, device), tiled=tiled)
+                        upload_batch(batch_np, device), tiled=tiled,
+                        cut_windowed=windowed)
                 else:
                     batch = assemble_train_batch(
                         upload_batch(loaded, device))
@@ -530,6 +539,12 @@ def _training_loop_impl(
                     # with ranks, no sample grid: each holds only its rows
                     _save_snapshot(state, batch if world == 1 else None,
                                    run_dir, step + 1)
+                    k = evaluation["tryon_grid_k"]
+                    if k > 0 and world == 1:
+                        save_cross_pair_grid(
+                            cfg, state, dataset.root, run_dir, step + 1,
+                            k=k, mode="thirds",
+                            image_names=dataset.image_names[:k])
                 if progress_fn is not None:
                     progress_fn(cur_nimg, cfg.total_kimg * 1000)
                 if abort_fn is not None and abort_fn():
@@ -567,6 +582,71 @@ def _make_tb_writer(run_dir):
     except Exception as e:  # pragma: no cover - depends on environment
         print(f"skipping tfevents export: {e}", flush=True)
         return None
+
+
+def save_cross_pair_grid(cfg, state, dataset_root, run_dir, step, k=4,
+                         mode="upper", image_names=None):
+    """Cross-pair try-on grid: row person x column garment, generated by
+    G-EMA (noise_mode="const") on the device it lies on. Returns the PNG's
+    path, `tryon_grid<step>.png` in `run_dir`.
+
+    The reference composes this with a host-side warp compositor
+    (denorm_clothes + setup_snapshot_image_grid,
+    training_loop_fullbody.py:77-309); here the test-mode preprocessing
+    (`preprocess_pair`, `to_model_inputs`) gives the same visualization.
+    mode="thirds" reproduces the reference grid composition: the top third
+    of rows swaps pants (lower), the middle third the whole outfit (full),
+    the bottom third tops (upper). Below 512 px the items are resized as
+    the evaluator's are (`trainsets._resize_item`).
+    """
+    from ..data import preprocess as pp
+    from ..data.roots import as_root
+    from ..data.testsets import to_model_inputs
+
+    dataset_root = as_root(dataset_root)
+    if image_names is None:
+        image_names = dataset_root.list("image")[:k]
+    people = [pp.load_person(dataset_root, n, with_garment_parsing=True)
+              for n in image_names]
+    if mode == "thirds":
+        third = max(len(people) // 3, 1)
+        row_modes = ["lower" if i < third else
+                     "full" if i < 2 * third else "upper"
+                     for i in range(len(people))]
+    else:
+        row_modes = [mode] * len(people)
+    items = [pp.preprocess_pair(row, col, row_mode)
+             for row, row_mode in zip(people, row_modes) for col in people]
+    if cfg.resolution != 512:
+        from ..data.trainsets import _resize_item
+
+        items = [_resize_item(it, cfg.resolution) for it in items]
+    inputs, _ = to_model_inputs(items)
+    g_ema = state.g_ema
+    device = next(g_ema.parameters()).device
+    with torch.no_grad():
+        _, finetune, _ = g_ema(noise_mode="const", **{
+            key: torch.from_numpy(np.asarray(v, np.float32)).to(device)
+            for key, v in inputs.items()})
+    fakes = finetune.float().cpu().numpy()
+
+    def _src(p):
+        img = p.image.astype(np.float32) / 127.5 - 1.0
+        if img.shape[0] != cfg.resolution:
+            import cv2
+
+            img = cv2.resize(img, (cfg.resolution, cfg.resolution),
+                             interpolation=cv2.INTER_AREA)
+        return img
+
+    sources = np.stack([_src(p) for p in people])
+    # source-bordered layout (setup_snapshot_image_grid image_side /
+    # image_top, training_loop_fullbody.py:214-340): left column = target
+    # persons (rows), top row = garment sources (columns)
+    path = os.path.join(run_dir, f"tryon_grid{step:06d}.png")
+    save_image_grid(fakes, path, grid_cols=len(people), side_images=sources,
+                    top_images=sources)
+    return path
 
 
 def _save_snapshot(state, batch, run_dir, step):

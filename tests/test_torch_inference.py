@@ -163,14 +163,17 @@ def test_pt_checkpoint_loads_g_ema(tmp_path):
         load_module(path, "vgg")
 
 
-def test_network_formats_that_raise(tmp_path):
+def test_network_formats_that_raise(tmp_path, monkeypatch):
     g = models.Generator(seed=0, img_resolution=64, channel_base=256,
                          channel_max=16)
-    with pytest.raises(NotImplementedError, match="legacy_pkl"):
+    # a .pkl is read (io/legacy_pkl.py) but needs the reference tree:
+    # without one, the JAX module's error
+    monkeypatch.setenv("PASTA_REFERENCE_ROOT", str(tmp_path / "missing"))
+    with pytest.raises(RuntimeError, match="PASTA_REFERENCE_ROOT"):
         cli_test.load_generator_weights(g, str(tmp_path / "network.pkl"))
     with pytest.raises(NotImplementedError, match="orbax"):
         cli_test.load_generator_weights(g, str(tmp_path))
-    with pytest.raises(ValueError, match="not a .npz or .pt"):
+    with pytest.raises(ValueError, match="not a .npz, .pt or .pkl"):
         cli_test.load_generator_weights(g, str(tmp_path / "g.onnx"))
     assert cli_test.load_generator_weights(g, None) is g
 

@@ -337,13 +337,20 @@ def test_cli_config_follows_the_jax_cli():
         assert got[k] == ref[k], k
 
 
-@pytest.mark.parametrize("flag,value,name", [
-    ("--tryon-grid", "3", "--tryon-grid"), ("--trace", "dir", "--trace")])
-def test_cli_deferred_flags_raise_by_name(flag, value, name, tmp_path):
-    with pytest.raises(NotImplementedError, match=name):
-        cli.main(["--outdir", str(tmp_path), "--data", "d", flag, value,
-                  "--dry-run"])
-    assert os.listdir(tmp_path) == []        # nothing was started
+@pytest.mark.parametrize("flag,value,key,want", [
+    ("--tryon-grid", "3", "tryon_grid", 3),
+    ("--trace", "dir", "trace", "dir")])
+def test_cli_grid_and_trace_flags_are_recorded(flag, value, key, want,
+                                               tmp_path):
+    """--tryon-grid and --trace (ported with the cross-pair grid and the
+    profiler trace; tests/test_torch_tryon_grid.py runs them) parse and
+    go into training_options.json; a dry run starts nothing."""
+    run = cli.main(["--outdir", str(tmp_path), "--data", "d", flag, value,
+                    "--dry-run"])
+    assert run is None
+    (name,) = os.listdir(tmp_path)
+    with open(os.path.join(tmp_path, name, "training_options.json")) as f:
+        assert json.load(f)["args"][key] == want
 
 
 @pytest.mark.parametrize("argv,match", [

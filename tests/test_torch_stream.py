@@ -209,12 +209,15 @@ def test_bench_stream_throughput_cycles_the_pairs(root, monkeypatch):
 
 def test_options_not_ported_raise(weights):
     model, _ = weights
-    with pytest.raises(NotImplementedError, match="matmul"):
-        serving.TryonPipeline(model, warp_impl="matmul")
     with pytest.raises(NotImplementedError, match="mesh"):
         serving.TryonPipeline(model, mesh=object())
     with pytest.raises(ValueError):
         serving.TryonPipeline(model, noise_mode="sometimes")
     with pytest.raises(ValueError):
         serving.TryonPipeline(model, cond="cloud")
+    with pytest.raises(ValueError, match="warp_impl"):
+        serving.TryonPipeline(model, warp_impl="nearest")
     assert serving.TryonPipeline(model, warp_impl="gather").cond == "device"
+    for impl in ("auto", "matmul", "matmul_bf16"):   # ported: no raise
+        pipe = serving.TryonPipeline(model, warp_impl=impl)
+        assert pipe.warp_impl == ("gather" if impl == "auto" else impl)
