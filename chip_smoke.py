@@ -9,9 +9,10 @@ disk, both loaders, the loop, snapshots, an exact resume) and the training
 options (grad_accum, Gpl, the contextual loss, the doubled parsing-D
 phase, freeze-D, the shared and the reused fakes), data-parallel training
 over ranks, evaluation (cli.calc_metrics's five metrics and the
-in-training metrics of cli.train), the matmul warps and the training run's
-try-on grid and trace -- with seeded random weights and seeded synthetic
-inputs, in phases:
+in-training metrics of cli.train), the matmul warps, the training run's
+try-on grid and trace, and a serving batch split over devices
+(TryonPipeline(mesh=...)) -- with seeded random weights and seeded
+synthetic inputs, in phases:
 
   1. device      -- fails without CUDA; prints the card's name, power limit
   2. build       -- compiles csrc/conv3x3.cu (K1) and csrc/shift.cu (K2, K3)
@@ -144,6 +145,24 @@ inputs, in phases:
                     seconds, the Chrome trace parsed and naming K1, exact
                     launches); the patch D and five legacy layers forward
                     and backward, card against CPU (1e-5 of the scale)
+ 17. mesh        -- TryonPipeline(mesh=...) with the fashion G in fp32 and
+                    in bf16 (top 3), batch 8 a shard, noise strengths 0.05:
+                    (a) [cuda:0], its model copied from the host, bit-equal
+                    to the pipeline without a mesh, "const" and "random";
+                    (b) [cuda:0, cuda:0] against batch 8 at the JAX
+                    package's split budget (mean 1e-4 of the range, 1e-3
+                    of values off by 1%), max diff and bit-equality
+                    printed; (c) run_stream through it over 64 pairs
+                    bit-equal to its run_batch; (d) K1's launches, 26 a
+                    shard, exact; (e) with two cards or more, min(4, cards)
+                    cards against one card at the same global batch, with
+                    run_batch and run_stream img/s, the host's ms to queue
+                    a batch and each card's idle share, K1 launched on
+                    each card against plain; one card prints that (e)
+                    needs more. Before (b): K1 at N = 4 bit-equal to rows
+                    of N = 8 at the serving shapes, and the first modules
+                    of the G whose outputs part between batch 4 and 8
+                    (printed)
 
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; the one
@@ -160,6 +179,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import copy
 import functools
 import json
 import os
@@ -2765,7 +2785,417 @@ def phase_matmul_warps(k1, shift, dev="cuda", small=False):
     return tuple(launched[k] for k in "fdab")
 
 
-def main():
+MESH_STREAM = 64       # pairs of phase 17's run_stream through a mesh
+MESH_TIMED = 10        # (e)'s timed run_batch batches, after a warm-up
+# The JAX package's budget for its own split (tests/test_serving.py,
+# test_pipeline_mesh_matches_single): mean |diff| over the range, and the
+# share of values off by more than 1% of the range
+SPLIT_BUDGET = (1e-4, 1e-3)
+
+
+def _split_gap(got, ref):
+    """(mean |got - ref| over ref's range, share of values off by more than
+    1% of it, max |got - ref|, bit-equal)."""
+    got, ref = got.float(), ref.float()
+    span = float(ref.max() - ref.min())
+    diff = (got - ref).abs()
+    return (float(diff.mean()) / span,
+            float((diff > 0.01 * span).float().mean()), float(diff.max()),
+            bool(torch.equal(got, ref)))
+
+
+def _hold_split(what, got, ref, bf16, alone=None):
+    """Hold `got`, a batch split into shards, against `ref`, the batch run
+    whole. fp32: the JAX package's split budget. bf16 (top 3): the shards'
+    batch size moves cuBLAS's rounding of the encoders' and the mapping's
+    fp32 matmuls by ~1e-7, which the bf16 layers amplify to about the gap
+    between bf16 and fp32 (the same gap shows without a split, at batch 4
+    against 8), so under "const" `got` is held bit-equal to `alone` (each
+    shard's rows run alone without a mesh, concatenated), and otherwise to
+    BF16_GAP. Returns the gap to `ref` (_split_gap)."""
+    gap = _split_gap(got, ref)
+    if not bf16:
+        check(gap[0] < SPLIT_BUDGET[0] and gap[1] < SPLIT_BUDGET[1],
+              f"{what}: the split against the whole batch {gap}")
+    elif alone is not None:
+        check(torch.equal(got, alone), f"{what}: the split differs from its "
+              f"shards run alone: {_split_gap(got, alone)}")
+    else:
+        frac, mean = _budget(got, ref)
+        check(frac <= BF16_GAP[0] and mean <= BF16_GAP[1],
+              f"{what}: bf16 split against the whole batch {frac}, {mean} "
+              f"beyond {BF16_GAP}")
+    return gap
+
+
+def _alone(model, items, shards):
+    """The pipeline without a mesh ("const") on each shard's rows,
+    concatenated."""
+    from pasta_tpu_torch.serving import TryonPipeline
+
+    pipe = TryonPipeline(model, mode="upper")
+    b = len(items) // shards
+    return torch.cat([pipe.run_batch(items[k * b:(k + 1) * b])
+                      for k in range(shards)])
+
+
+# K1's serving shapes at batch 8 (H, C_in, C_out of the VALID conv)
+K1_SERVING = ((514, 128, 64), (514, 64, 64), (514, 64, 128), (258, 128, 128))
+
+
+def _k1_rows_invariant(k1, dev, dtype, batch):
+    """K1 at half the batch gives rows 0.. of the whole batch's result bit
+    for bit, at each serving shape (its per-item arithmetic does not
+    depend on N). Counts are restored: these launches are a comparison."""
+    counts = (k1.conv3x3_valid.launches, k1.conv3x3_valid.launches_fp32)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for hw, ci, co in K1_SERVING:
+        x = torch.randn(batch, hw, hw, ci, device=dev, generator=g).to(dtype)
+        w = (torch.randn(3, 3, ci, co, device=dev, generator=g)
+             / (9 * ci) ** 0.5).to(dtype)
+        half = k1.conv3x3_valid(x[:batch // 2].contiguous(), w)
+        check(torch.equal(k1.conv3x3_valid(x, w)[:batch // 2], half),
+              f"mesh: K1 {dtype} [{hw},{ci}]->{co} at N = {batch // 2} "
+              f"differs from rows of N = {batch}")
+    k1.conv3x3_valid.launches, k1.conv3x3_valid.launches_fp32 = counts
+
+
+def _first_parting(pipe, items, shown=3):
+    """The first modules of the generator (in the order they finish) whose
+    output on the first half of `items` differs from the same rows of
+    their output on all of them: [(name, max |diff|)]. The assembled
+    inputs must agree bit for bit."""
+    from pasta_tpu_torch.serving import assemble_inputs_device, ingest_device
+
+    half = len(items) // 2
+    with torch.inference_mode():
+        inputs = [assemble_inputs_device(ingest_device(pipe._upload(its)),
+                                         pipe.mode, tiled=True)
+                  for its in (items, items[:half])]
+        for k in inputs[0]:
+            check(torch.equal(inputs[0][k][:half], inputs[1][k]),
+                  f"mesh: assembled input {k} depends on the batch size")
+        # the half batch first, its outputs kept; the whole batch's are
+        # compared as they come and dropped
+        kept, parted = {}, []
+
+        def hook(name):
+            def record(m, a, out):
+                out = out[0] if isinstance(out, (tuple, list)) else out
+                if not isinstance(out, torch.Tensor):
+                    return
+                if out.shape[0] == half and name not in kept:
+                    kept[name] = out
+                elif out.shape[0] == len(items) and name in kept:
+                    ref = kept.pop(name)
+                    if not torch.equal(out[:half], ref):
+                        parted.append((name or "<generator>", float(
+                            (out[:half].float() - ref.float()).abs().max())))
+            return record
+
+        hooks = [m.register_forward_hook(hook(name))
+                 for name, m in pipe.model.named_modules()]
+        try:
+            for inp in inputs[::-1]:
+                pipe.model(noise_mode="const", **inp)
+        finally:
+            for h in hooks:
+                h.remove()
+    return parted[:shown]
+
+
+def _noisy(model, strength=0.05):
+    """`model` with every noise strength set to `strength` (drawn as 0, so
+    that the noise modes would agree)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("noise_strength"):
+                p.fill_(strength)
+    return model
+
+
+def _idle_by_card(prof):
+    """{card: idle share} of a trace's kernels over the trace's device span
+    (first kernel on any card to the last on any)."""
+    from pasta_tpu_torch.cli.profile_serving import busy_us
+
+    by = collections.defaultdict(list)
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.time_range.elapsed_us() > 0):
+            by[e.device_index].append((e.time_range.start, e.time_range.end))
+    check(by, "mesh: the trace holds no device time")
+    t0 = min(s for iv in by.values() for s, _ in iv)
+    t1 = max(e for iv in by.values() for _, e in iv)
+    return {d: 1 - busy_us(iv) / (t1 - t0) for d, iv in sorted(by.items())}
+
+
+def _sync_cards():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _rates(pipe, items, batches):
+    """(run_batch img/s over `batches` batches after a warm-up, host
+    clock, one sync at the end; mean host ms to queue one batch)."""
+    pipe.run_batch(items)
+    _sync_cards()
+    queued = []
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        t = time.perf_counter()
+        pipe.run_batch(items)
+        queued.append(time.perf_counter() - t)
+    _sync_cards()
+    return len(items) * batches / (time.perf_counter() - t0), \
+        1e3 * float(np.mean(queued))
+
+
+def _k1_every_card(k1, cards, dtype):
+    """K1 launched on each card in turn from this process, at the serving
+    shape [8,258,258,128]->128, against its plain version (fp32: 1e-5 of
+    the output scale, bf16: 2^-7); the largest error of each. Counts are
+    restored: these launches are a comparison."""
+    counts = (k1.conv3x3_valid.launches, k1.conv3x3_valid.launches_fp32)
+    errs = []
+    for dev in cards:
+        g = torch.Generator(device=dev).manual_seed(dev.index)
+        x = torch.randn(BATCH, 258, 258, 128, device=dev,
+                        generator=g).to(dtype)
+        w = (torch.randn(3, 3, 128, 128, device=dev, generator=g)
+             / 34.0).to(dtype)
+        got = k1.conv3x3_valid(x, w).float()
+        ref = k1.conv3x3_valid_plain(x.float(), w.float())
+        scale = ref.abs().max().item()
+        errs.append((got - ref).abs().max().item() / scale)
+        check(errs[-1] <= (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5),
+              f"mesh (e): K1 {dtype} on {dev} against plain {errs[-1]}")
+    k1.conv3x3_valid.launches, k1.conv3x3_valid.launches_fp32 = counts
+    return errs
+
+
+def _mesh_cards(k1, model, items, root, pairs, tag):
+    """(e): the batch split over min(4, cards) cards from one process.
+    Returns K1's launches."""
+    from pasta_tpu_torch.cli import bench
+    from pasta_tpu_torch.serving import TryonPipeline
+
+    n = min(4, torch.cuda.device_count())
+    cards = [torch.device("cuda", i) for i in range(n)]
+    k1_errs = _k1_every_card(
+        k1, cards, torch.bfloat16 if "bf16" in tag else torch.float32)
+    k1.conv3x3_valid.launches = k1.conv3x3_valid.launches_fp32 = 0
+    t0 = time.perf_counter()
+    single = TryonPipeline(model, mode="upper")
+    bf16 = "bf16" in tag
+    with TryonPipeline(model, mode="upper", mesh=cards) as mesh:
+        gaps = {}
+        for noise_mode in ("const", "random"):
+            one = TryonPipeline(model, mode="upper", noise_mode=noise_mode,
+                                seed=1)
+            with TryonPipeline(model, mode="upper", noise_mode=noise_mode,
+                               seed=1, mesh=cards) as split:
+                got = split.run_batch(items)
+            check(got.device == cards[0], f"mesh (e): output on {got.device}")
+            alone = (_alone(model, items, n)
+                     if bf16 and noise_mode == "const" else None)
+            gaps[noise_mode] = _hold_split(
+                f"mesh (e) {tag} {noise_mode}, {n} cards", got,
+                one.run_batch(items), bf16, alone)
+        rates = {"mesh": _rates(mesh, items, MESH_TIMED),
+                 "one card, batch 8": _rates(single, items[:BATCH],
+                                             MESH_TIMED),
+                 f"one card, batch {len(items)}": _rates(single, items,
+                                                         MESH_TIMED)}
+        streams = {"mesh": bench.stream_throughput(mesh, root, pairs,
+                                                   len(items)),
+                   "one card, batch 8": bench.stream_throughput(
+                       single, root, pairs, BATCH)}
+        mesh.run_batch(items)
+        _sync_cards()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            mesh.run_batch(items)
+            _sync_cards()
+        idle = _idle_by_card(prof)
+    launches = k1.conv3x3_valid.launches
+    fp32 = k1.conv3x3_valid.launches_fp32
+    # stream_throughput: a warm-up batch, then the pairs in whole batches
+    stream_batches = {"mesh": 1 + -(-bench.STREAM_PAIRS // len(items)),
+                      "one": 1 + -(-bench.STREAM_PAIRS // BATCH)}
+    want = (K1_PER_BATCH * n * (2 + (1 + MESH_TIMED)
+                                + stream_batches["mesh"] + 2 + bf16)
+            + K1_PER_BATCH * (2 + 2 * (1 + MESH_TIMED)
+                              + stream_batches["one"]))
+    check(launches == want and fp32 == (launches if "fp32" in tag else 0),
+          f"mesh (e) {tag}: K1 launches {launches} ({fp32} fp32) != {want}")
+    check(len(idle) == n, f"mesh (e) {tag}: kernels on cards {list(idle)}")
+    for noise_mode, (mean, frac, mx, same) in gaps.items():
+        print(f"[mesh] (e) {tag}, {n} cards vs one at batch {len(items)}, "
+              f"{noise_mode}: mean {mean:.3g} of the range, {frac:.3g} off "
+              f"by 1%, max {mx:.3g}, bit-equal {same}"
+              + (" (held: bit-equal to its shards run alone)"
+                 if bf16 and noise_mode == "const" else ""), flush=True)
+    print(f"[mesh] (e) {tag}: run_batch img/s (host ms to queue a batch) "
+          + ", ".join(f"{k} {r:.2f} ({q:.1f} ms)" for k, (r, q) in
+                      rates.items())
+          + f" | run_stream {bench.STREAM_PAIRS} pairs img/s "
+          + ", ".join(f"{k} {r:.2f}" for k, r in streams.items())
+          + " | idle share of a profiled mesh batch by card "
+          + ", ".join(f"cuda:{d} {v:.3f}" for d, v in idle.items())
+          + f" | K1 launches {launches} | K1 on each card against plain, "
+          "of the scale: " + ", ".join(f"{e:.3g}" for e in k1_errs)
+          + f" | {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def phase_mesh(k1, dev="cuda", small=False):
+    """TryonPipeline(mesh=...): a batch split over devices, at full width
+    in fp32 (cli.test's default) and with bf16 in the top 3 resolutions.
+    (a) a mesh of one card, its model copied there from the host, against
+    the pipeline without a mesh on the same batch, under "const" and
+    "random" noise (noise strengths 0.05): bit-equal; (b) two shards on
+    one card against the pipeline without a mesh at batch 8: the JAX
+    package's split budget, the max diff and bit-equality printed; (c)
+    run_stream through the two shards over 64 pairs, bit-equal to the
+    mesh's run_batch batch by batch; (d) K1's launches exact, 26 a shard;
+    (e) with two cards or more, a mesh of min(4, cards) cards against one
+    card, with img/s, the host's ms to queue a batch and each card's idle
+    share. `small` takes the narrow G at batch 2 and 4 pairs (a CPU
+    rehearsal). Returns K1's launches of the phase."""
+    from pasta_tpu_torch.data.synthetic import write_tryon_root
+    from pasta_tpu_torch.models import Generator
+    from pasta_tpu_torch.serving import TryonPipeline
+
+    card = torch.device(dev).type == "cuda"
+    t_phase = time.perf_counter()
+    d0 = torch.device("cuda", 0) if card else torch.device("cpu")
+    batch = 2 if small else BATCH
+    narrow = dict(channel_base=2048, channel_max=128) if small else {}
+    n_stream = 2 * batch if small else MESH_STREAM
+    launched = 0
+    tmp = tempfile.mkdtemp(prefix="pasta_smoke_mesh_")
+    try:
+        root = os.path.join(tmp, "root")
+        pairs = write_tryon_root(root, N_INFER)
+        stream_pairs = [pairs[i % len(pairs)] for i in range(n_stream)]
+        items = stream_items = None
+        for bf16_res in (0, 3):
+            tag = "bf16 top 3" if bf16_res else "fp32"
+            t0 = time.perf_counter()
+            host_model = _noisy(Generator(seed=0, num_bf16_res=bf16_res,
+                                          **narrow).eval())
+            model = copy.deepcopy(host_model).to(d0)
+            if items is None:
+                prep = TryonPipeline(model, mode="upper")
+                items = _items(prep, range(batch), 3.0)
+                stream_items = [prep.prepare_pair(root, p)
+                                for p in stream_pairs]
+                check(all(bool(it["tiles_fit"]) for it in items),
+                      "mesh: the batch does not fit its paste tiles")
+            dtype = torch.bfloat16 if bf16_res else torch.float32
+            if card:
+                _k1_rows_invariant(k1, d0, dtype, batch)
+            parted = _first_parting(TryonPipeline(model, mode="upper"), items)
+            k1.conv3x3_valid.launches = k1.conv3x3_valid.launches_fp32 = 0
+            refs, gaps = {}, {}
+            for noise_mode in ("const", "random"):
+                kw = dict(mode="upper", noise_mode=noise_mode, seed=1)
+                refs[noise_mode] = TryonPipeline(model, **kw).run_batch(items)
+                # (a) the model copied from the host to the mesh's one card
+                with TryonPipeline(host_model, mesh=[d0], **kw) as one:
+                    got = one.run_batch(items)
+                check(torch.equal(got, refs[noise_mode]),
+                      f"mesh (a) {tag} {noise_mode}: a mesh of one device "
+                      f"differs from the pipeline without a mesh: "
+                      f"{_split_gap(got, refs[noise_mode])}")
+                # (b) two shards on one card
+                with TryonPipeline(model, mesh=[d0, d0], **kw) as two:
+                    got = two.run_batch(items)
+                alone = None
+                if bf16_res and noise_mode == "const":
+                    alone = _alone(model, items, 2)
+                    gaps[f"without a mesh, batch {batch // 2} twice"] = (
+                        _split_gap(alone, refs[noise_mode]))
+                gaps[noise_mode] = _hold_split(
+                    f"mesh (b) {tag} {noise_mode}", got, refs[noise_mode],
+                    bool(bf16_res), alone)
+            check(not torch.equal(refs["const"], refs["random"]),
+                  f"mesh {tag}: random noise changed nothing")
+            # (c) run_stream through the two shards
+            with TryonPipeline(model, mode="upper", mesh=[d0, d0]) as two:
+                streamed = list(two.run_stream(root, stream_pairs, batch))
+                check([c for c, _ in streamed]
+                      == [stream_pairs[i:i + batch]
+                          for i in range(0, n_stream, batch)],
+                      f"mesh (c) {tag}: run_stream's chunks out of order")
+                for i, (_, out) in enumerate(streamed):
+                    ref = two.run_batch(
+                        stream_items[i * batch:(i + 1) * batch])
+                    check(np.array_equal(out, ref.float().cpu().numpy()),
+                          f"mesh (c) {tag}: run_stream batch {i} differs "
+                          "from the mesh's run_batch")
+            _sync(dev)
+            # (d) 26 a shard: (a) 2 x (1 + 1), (b) 2 x 2 (bf16: and the
+            # two shards alone), (c) 2 x 2 a batch
+            n_batches = n_stream // batch
+            want = K1_PER_BATCH * (4 + 4 + 2 * bool(bf16_res)
+                                   + 4 * n_batches)
+            launches = k1.conv3x3_valid.launches
+            fp32 = k1.conv3x3_valid.launches_fp32
+            check(not card or (launches == want and fp32 == (
+                0 if bf16_res else launches)),
+                  f"mesh (d) {tag}: K1 launches {launches} ({fp32} fp32) "
+                  f"!= {want}")
+            launched += launches
+            held = ("bit-equal to its shards alone under const, "
+                    f"BF16_GAP {BF16_GAP} under random" if bf16_res else
+                    f"budget {SPLIT_BUDGET[0]:g}, {SPLIT_BUDGET[1]:g}")
+            for what, (mean, frac, mx, same) in gaps.items():
+                print(f"[mesh] (b) {tag}, [cuda:0, cuda:0] vs no mesh at "
+                      f"batch {batch}, {what}: mean {mean:.3g} of the "
+                      f"range, {frac:.3g} off by 1%, max {mx:.3g}, "
+                      f"bit-equal {same} (held: {held})", flush=True)
+            print(f"[mesh] {tag}: K1 at N = {batch // 2} bit-equal to rows "
+                  f"of N = {batch} at {len(K1_SERVING) if card else 0} "
+                  f"serving shapes, and the assembled inputs; the first "
+                  f"modules whose outputs part: "
+                  + (", ".join(f"{n} (max {d:.3g})" for n, d in parted)
+                     or "none"), flush=True)
+            print(f"[mesh] {tag}: (a) [cuda:0] from the host's model "
+                  f"bit-equal, const and random | (c) run_stream {n_stream} "
+                  f"pairs through [cuda:0, cuda:0] bit-equal to run_batch, "
+                  f"{n_batches} batches | (d) K1 launches {launches} "
+                  f"({fp32} fp32) = {K1_PER_BATCH} x {want // K1_PER_BATCH}"
+                  f" shards | {time.perf_counter() - t0:.1f} s", flush=True)
+            # (e) the cards of the machine
+            cards = torch.cuda.device_count() if card else 0
+            if cards >= 2:
+                wide = _items(TryonPipeline(model, mode="upper"),
+                              range(BATCH * min(4, cards)), 3.0)
+                launched += _mesh_cards(k1, model, wide, root, pairs, tag)
+            elif card:
+                print(f"[mesh] (e) {tag} needs 2 CUDA devices or more, "
+                      f"{cards} here: python3 chip_smoke.py --only mesh on "
+                      "a machine with several runs it", flush=True)
+            del host_model, model
+            _free(dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launched
+
+
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", choices=["mesh"],
+                        help="build the kernels and run this phase alone "
+                        "(mesh: phase 17, its part (e) on every card "
+                        "there is, up to four)")
+    args = parser.parse_args(argv)
     smi = phase_device()
     from pasta_tpu_torch.ops._build import pin_fp32_numerics
 
@@ -2774,6 +3204,11 @@ def main():
     from pasta_tpu_torch.ops import conv3x3 as k1
 
     phase_build(k1, shift)
+    if args.only == "mesh":
+        print(json.dumps({"phase": "mesh",
+                          "launches_mesh": phase_mesh(k1)}))
+        print(smi)
+        return
     rows = phase_kernel(k1, BATCH)
     launches = phase_main(k1, BATCH, N_TIMED)
     phase_check()
@@ -2788,6 +3223,7 @@ def main():
     infer_counts, infer_rows = phase_inference(k1, shift)
     eval_launches, eval_rows = phase_evaluation(k1, shift)
     warp_counts = phase_matmul_warps(k1, shift)
+    mesh_launches = phase_mesh(k1)
     k1_rows = rows + train_rows["K1"] + infer_rows + eval_rows
 
     def total(rs, key):
@@ -2818,14 +3254,14 @@ def main():
     # options' steps, the data-parallel steps summed over their ranks, the
     # inference runs through cli.test, the evaluation's serving run,
     # metrics and training run with the metrics, the matmul warps' serving
-    # batches, the traced training run with its grid and the patch D),
-    # summed
+    # batches, the traced training run with its grid and the patch D, the
+    # mesh's batches over every card), summed
     print(json.dumps({"kernels": [
         entry("conv3x3_valid", "pasta_tpu_torch/csrc/conv3x3.cu",
               "pasta_tpu/ops/pallas_conv.py:139",
               launches + k1_total + sum(run_counts[:2]) + sum(opt_run[:2])
               + sum(opt_counts[:2]) + sum(dist_counts[:2]) + infer_counts[0]
-              + eval_launches + sum(warp_counts[:2]),
+              + eval_launches + sum(warp_counts[:2]) + mesh_launches,
               k1_rows, opt_errs["K1"], launches_serving=launches,
               launches_train=counts[0],
               launches_dx=counts[1], launches_train_run=run_counts[0],
@@ -2844,6 +3280,7 @@ def main():
               launches_evaluation=eval_launches,
               launches_matmul_warps=warp_counts[0],
               launches_matmul_warps_dx=warp_counts[1],
+              launches_mesh=mesh_launches,
               ms_evaluation=total(eval_rows, "ms"),
               ms_fp32=total(fp32, "ms"), ms_bf16=total(bf16, "ms"),
               bound_ms_fp32=total(fp32, "bound_ms"),

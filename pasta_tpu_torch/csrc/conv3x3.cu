@@ -906,20 +906,18 @@ conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// Per call: a function attribute belongs to the device that is current when
+// it is set, and one process may launch on several devices.
 template <int CI, int BN>
 cudaError_t prepare_f32() {
-  static cudaError_t state = cudaErrorNotReady;  // set once per process
-  if (state == cudaErrorNotReady) {
-    state = cudaFuncSetAttribute(conv3x3_f32_kernel<CI, BN>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 CfgF<CI, BN>::SMEM);
-    if (state == cudaSuccess)
-      state = cudaFuncSetAttribute(
-          conv3x3_f32_kernel<CI, BN>,
-          cudaFuncAttributePreferredSharedMemoryCarveout,
-          cudaSharedmemCarveoutMaxShared);
-  }
-  return state;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_f32_kernel<CI, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      CfgF<CI, BN>::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(conv3x3_f32_kernel<CI, BN>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
 }
 
 template <int CI, int BN>

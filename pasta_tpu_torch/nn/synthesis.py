@@ -23,6 +23,24 @@ def _hwio(w):
     return w.permute(2, 3, 1, 0)
 
 
+class NoiseRows:
+    """The noise of rows [start, start + n) of a batch of `batch` rows, for
+    a forward that runs those rows alone: each draw is made at the whole
+    batch's size from `generator` and cut to the rows, so that the shards
+    of a batch split over devices (serving's mesh) get the rows of the
+    noise that one forward of the whole batch draws from a generator in the
+    same state. A forward's `generator` is a torch.Generator, None or
+    one of these."""
+
+    def __init__(self, generator, start, batch):
+        self.generator, self.start, self.batch = generator, start, batch
+
+    def randn(self, shape, device):
+        full = torch.randn((self.batch,) + tuple(shape[1:]),
+                           generator=self.generator, device=device)
+        return full[self.start:self.start + shape[0]]
+
+
 class SynthesisLayer(nn.Module):
     """Modulated conv + noise + fused lrelu; optional 2x upsample."""
 
@@ -51,9 +69,13 @@ class SynthesisLayer(nn.Module):
         styles = self.affine(w)
         noise = None
         if self.use_noise and noise_mode == "random":
-            noise = torch.randn(
-                (x.shape[0], self.resolution, self.resolution, 1),
-                generator=generator, device=x.device) * self.noise_strength
+            shape = (x.shape[0], self.resolution, self.resolution, 1)
+            if isinstance(generator, NoiseRows):
+                noise = generator.randn(shape, x.device)
+            else:
+                noise = torch.randn(shape, generator=generator,
+                                    device=x.device)
+            noise = noise * self.noise_strength
         elif self.use_noise and noise_mode == "const":
             noise = (self.noise_const * self.noise_strength)[None, :, :, None]
         x = modulated_conv2d(x, _hwio(self.weight), styles, noise=noise,

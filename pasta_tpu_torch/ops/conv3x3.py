@@ -57,12 +57,14 @@ JAX package leaves the weight gradient to XLA. A dX whose channels fall
 outside K1's scope (C_out not in {64, 128}) is the plain conv, chosen from
 the shape. `conv3x3_valid.launches` counts forward launches,
 `.launches_bwd` the launches made for input gradients, `.launches_fp32`
-those of either kind that took the fp32 kernel.
+those of either kind that took the fp32 kernel; each over every card and
+host thread of the process.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +72,7 @@ import torch.nn.functional as F
 from ._build import load_library
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+_count_lock = threading.Lock()
 
 
 def _bind(lib):
@@ -197,12 +200,13 @@ def _launch(x, w, out_w, bwd, pad):
     if _plain_route(x):
         return conv3x3_valid_plain(x, w, out_w, pad)
     out = _kernel(x, w, out_w, pad)
-    if x.dtype == torch.float32:
-        conv3x3_valid.launches_fp32 += 1
-    if bwd:
-        conv3x3_valid.launches_bwd += 1
-    else:
-        conv3x3_valid.launches += 1
+    with _count_lock:       # a mesh queues its cards from several threads
+        if x.dtype == torch.float32:
+            conv3x3_valid.launches_fp32 += 1
+        if bwd:
+            conv3x3_valid.launches_bwd += 1
+        else:
+            conv3x3_valid.launches += 1
     return out
 
 

@@ -1,5 +1,5 @@
-"""End-to-end try-on serving on one GPU: device preprocessing + generator
-(port of pasta_tpu/serving.py).
+"""End-to-end try-on serving on one GPU, or one batch split over several
+(`mesh=`): device preprocessing + generator (port of pasta_tpu/serving.py).
 
 The host does decode / keypoint parsing / label routing / homography solves
 (numpy, data/host.py); everything else -- person conditioning rasters
@@ -13,6 +13,10 @@ of later batches with the device's work on the current one.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import copy
+import weakref
 from typing import Dict
 
 import numpy as np
@@ -25,6 +29,7 @@ from .data.device_warp import (MASK_THRESH, bound_from_mask_top, erode,
                                resolve_warp_impl, zero_bound_above_mask_bottom,
                                zero_conflicts_device)
 from .data.host import CUT_WINDOW, host_prepare
+from .nn.synthesis import NoiseRows
 from .shapes import assert_batch_shapes
 
 _INGEST_F32_KEYS = ("upper_img", "lower_img", "upper_mask", "lower_mask",
@@ -176,15 +181,37 @@ class NoiseSeeds:
         self._seeds = torch.Generator().manual_seed(seed)
         self._noise = torch.Generator(device=device)
 
+    def next_seed(self):
+        """The seed of the next batch."""
+        return int(torch.randint(2 ** 62, (), generator=self._seeds))
+
     def next(self):
         """The generator for the next batch."""
-        sub = int(torch.randint(2 ** 62, (), generator=self._seeds))
-        return self._noise.manual_seed(sub)
+        return self._noise.manual_seed(self.next_seed())
+
+
+def _mesh_devices(mesh):
+    """The mesh's entries as torch devices, "cuda" as the current card."""
+    devices = []
+    for d in mesh:
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        devices.append(d)
+    if not devices:
+        raise ValueError("TryonPipeline: an empty mesh")
+    return devices
+
+
+def _close_pools(pools):
+    for pool in pools:
+        pool.shutdown(wait=True)
 
 
 class TryonPipeline:
-    """Batched serving on one device: host_prepare -> ingest_device ->
-    assemble_inputs_device -> Generator.
+    """Batched serving: host_prepare -> ingest_device ->
+    assemble_inputs_device -> Generator, on one device or split over a
+    mesh.
 
     `model` is the port's Generator with its weights loaded, on the device
     that serves. `cond` is "device" (the person conditioning computed in
@@ -193,15 +220,24 @@ class TryonPipeline:
     "random" or "none"; "random" draws the synthesis noise on the model's
     device, one seed a batch from `seed` (NoiseSeeds). `warp_impl` picks
     the cut and paste warps (`assemble_inputs_device`; "auto" is the
-    gather). `mesh=` of the JAX pipeline is not ported (ROADMAP queue 1).
+    gather).
+
+    `mesh`, the counterpart of the JAX pipeline's one-axis Mesh, is an
+    ordered sequence of torch devices ("cuda:0", torch.device("cuda", 1),
+    ...; its size is its length). The model is copied once to each
+    distinct device of the mesh (the device it lies on uses it as it is),
+    and `run_batch` splits a batch, whose size the mesh's size must
+    divide, into that many shards of contiguous rows: shard k runs on the
+    mesh's k-th device. A device may appear more than once; it then serves
+    its shards in turn (so the split runs on one card, or on the CPU).
+    Each distinct device has one host thread of the pipeline's own that
+    queues its shards; `close()` (or leaving a `with` block) ends them.
+    Under noise_mode="random" every shard gets its rows of the noise that
+    the pipeline without a mesh draws for the same batch and seed.
     """
 
     def __init__(self, model, mode="upper", noise_mode="const",
                  warp_impl="auto", cond="device", mesh=None, seed=0):
-        if mesh is not None:
-            raise NotImplementedError(
-                "TryonPipeline(mesh=...): a batch split over cards is not "
-                "ported (ROADMAP queue 1, the port's last module)")
         if noise_mode not in ("const", "random", "none"):
             raise ValueError(f"noise_mode {noise_mode!r}")
         if cond not in ("device", "host"):
@@ -212,8 +248,34 @@ class TryonPipeline:
         self.noise_mode = noise_mode
         self.cond = cond
         self.device = next(model.parameters()).device
+        self.mesh = None
+        if mesh is not None:
+            self.mesh = _mesh_devices(mesh)
+            self.device = self.mesh[0]        # where run_batch's output lies
+            home = next(model.parameters()).device
+            self._replicas = {
+                d: model if d == home else copy.deepcopy(model).to(d).eval()
+                for d in dict.fromkeys(self.mesh)}
+            self._pools = {
+                d: concurrent.futures.ThreadPoolExecutor(
+                    1, thread_name_prefix=f"TryonPipeline-{id(self)}-{d}")
+                for d in self._replicas}
+            self._shard_noise = [torch.Generator(device=d) for d in self.mesh]
+            self._close = weakref.finalize(self, _close_pools,
+                                           list(self._pools.values()))
         self._noise = NoiseSeeds(seed, self.device)
         self.last_tiled = self.last_cut_windowed = None
+
+    def close(self):
+        """End the mesh's host threads (nothing without a mesh)."""
+        if self.mesh is not None:
+            self._close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
     def prepare(self, person, clothes, use_sleeve_mask=True):
         return host_prepare(person, clothes, self.mode, use_sleeve_mask,
@@ -244,12 +306,13 @@ class TryonPipeline:
         item = self.prepare(person, clothes, use_sleeve_mask)
         return (item, person.image, clothes.image) if with_images else item
 
-    def _upload(self, host_items):
-        """Stack each array of the items and copy it to the device. On a
-        card the stack is written into pinned host memory and copied
-        without blocking the host (PyTorch's pinned-memory cache keeps
-        the block until its copy is done)."""
-        pin = self.device.type == "cuda"
+    def _upload(self, host_items, device=None):
+        """Stack each array of the items and copy it to `device` (the
+        pipeline's by default). On a card the stack is written into pinned
+        host memory and copied without blocking the host (PyTorch's
+        pinned-memory cache keeps the block until its copy is done)."""
+        device = self.device if device is None else device
+        pin = device.type == "cuda"
         batch = {}
         for k in host_items[0]:
             if k in ("tiles_fit", "cut_fits"):
@@ -259,8 +322,63 @@ class TryonPipeline:
             host = torch.empty((len(arrs),) + arrs[0].shape, dtype=dtype,
                                pin_memory=pin)
             np.stack(arrs, out=host.numpy())
-            batch[k] = host.to(self.device, non_blocking=pin)
+            batch[k] = host.to(device, non_blocking=pin)
         return batch
+
+    def _forward(self, model, device, host_items, tiled, cut_windowed,
+                 generator):
+        inputs = assemble_inputs_device(
+            ingest_device(self._upload(host_items, device)), self.mode,
+            tiled=tiled, warp_impl=self.warp_impl, cut_windowed=cut_windowed)
+        _, finetune, _ = model(noise_mode=self.noise_mode,
+                               generator=generator, **inputs)
+        return finetune
+
+    def _queue_shards(self, device, stream, shards, tiled, cut_windowed):
+        """One device's host thread: queue its shards' work, in order, on
+        `stream`; returns [(shard index, finetune)] without waiting."""
+        on = (torch.cuda.stream(stream) if device.type == "cuda"
+              else contextlib.nullcontext())
+        with torch.inference_mode(), on:
+            return [(k, self._forward(self._replicas[device], device, items,
+                                      tiled, cut_windowed, noise))
+                    for k, items, noise in shards]
+
+    def _run_shards(self, host_items, tiled, cut_windowed):
+        """The batch split over the mesh: the finetune image of each shard
+        on its device, queued and not waited for."""
+        size = len(self.mesh)
+        assert len(host_items) % size == 0, (
+            f"batch {len(host_items)} not divisible by mesh size {size}")
+        b = len(host_items) // size
+        seed = (self._noise.next_seed() if self.noise_mode == "random"
+                else None)
+        work = {d: [] for d in self._pools}
+        for k, d in enumerate(self.mesh):
+            noise = None
+            if seed is not None:
+                noise = NoiseRows(self._shard_noise[k].manual_seed(seed),
+                                  k * b, len(host_items))
+            work[d].append((k, host_items[k * b:(k + 1) * b], noise))
+        futures = [
+            self._pools[d].submit(
+                self._queue_shards, d,
+                torch.cuda.current_stream(d) if d.type == "cuda" else None,
+                shards, tiled, cut_windowed)
+            for d, shards in work.items()]
+        outs = [None] * size
+        for f in futures:
+            for k, out in f.result():
+                outs[k] = out
+        return outs
+
+    def _paths(self, host_items):
+        """(tiled, cut_windowed) of a batch, chosen over all of it."""
+        tiled = all(bool(it["tiles_fit"]) for it in host_items)
+        cut_windowed = tiled and all(bool(it.get("cut_fits", False))
+                                     for it in host_items)
+        self.last_tiled, self.last_cut_windowed = tiled, cut_windowed
+        return tiled, cut_windowed
 
     @torch.inference_mode()
     def run_batch(self, host_items):
@@ -268,20 +386,20 @@ class TryonPipeline:
         (queued, not waited for). Takes the tiled paste path when every
         item's quads fit, and on it the cut windows when every item's cut
         quads fit too (`cut_fits`); the windows feed only the matmul warps,
-        and the gather cut reads the full source either way.
+        and the gather cut reads the full source either way. With a mesh,
+        both choices are made over the whole batch before it is split, and
+        the shards' outputs are gathered on the mesh's first device.
         """
-        tiled = all(bool(it["tiles_fit"]) for it in host_items)
-        cut_windowed = tiled and all(bool(it.get("cut_fits", False))
-                                     for it in host_items)
-        self.last_tiled, self.last_cut_windowed = tiled, cut_windowed
-        inputs = assemble_inputs_device(
-            ingest_device(self._upload(host_items)), self.mode, tiled=tiled,
-            warp_impl=self.warp_impl, cut_windowed=cut_windowed)
+        tiled, cut_windowed = self._paths(host_items)
+        if self.mesh is not None:
+            # device-to-device copies, ordered after each source's stream
+            return torch.cat([
+                o.to(self.device, non_blocking=True)
+                for o in self._run_shards(host_items, tiled, cut_windowed)])
         generator = (self._noise.next() if self.noise_mode == "random"
                      else None)
-        _, finetune, _ = self.model(noise_mode=self.noise_mode,
-                                    generator=generator, **inputs)
-        return finetune
+        return self._forward(self.model, self.device, host_items, tiled,
+                             cut_windowed, generator)
 
     def run_stream(self, root, pairs, batch_size=8, use_sleeve_mask=True,
                    num_workers=8, prefetch=2, with_images=False):
@@ -299,10 +417,11 @@ class TryonPipeline:
         copies of its last item. With `with_images`, each yield also
         carries the chunk's [(person image, clothes image)] that the prep
         threads decoded (`prepare_pair`), so that a caller writing
-        composites decodes nothing again.
+        composites decodes nothing again. With a mesh, `batch_size` is a
+        multiple of its size, and each shard's output is copied from its
+        device straight into its rows of the host buffer.
         """
         import collections
-        import concurrent.futures
 
         from .data.roots import as_root
 
@@ -312,18 +431,29 @@ class TryonPipeline:
             return self.prepare_pair(root, pair, use_sleeve_mask,
                                      with_images)
 
-        def fetch(out):
-            """Queue the copy of a batch's output to pinned host memory;
-            returns the host tensor and an event that marks its end."""
-            out = out.float()
+        def fetch(outs):
+            """Queue the copy of a batch's output, shard by shard, into its
+            rows of one pinned host buffer; returns the host tensor and one
+            event a card that marks the end of its copies."""
+            outs = [o.float() for o in outs]
             pin = self.device.type == "cuda"
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=pin)
-            host.copy_(out, non_blocking=pin)
-            done = None
-            if pin:
-                done = torch.cuda.Event()
-                done.record()
+            rows = sum(len(o) for o in outs)
+            host = torch.empty((rows,) + outs[0].shape[1:],
+                               dtype=torch.float32, pin_memory=pin)
+            row = 0
+            for o in outs:
+                host[row:row + len(o)].copy_(o, non_blocking=pin)
+                row += len(o)
+            done = []
+            for d in dict.fromkeys(o.device for o in outs) if pin else ():
+                done.append(torch.cuda.Event())
+                done[-1].record(torch.cuda.current_stream(d))
             return host, done
+
+        def run(items):
+            if self.mesh is None:
+                return [self.run_batch(items)]
+            return self._run_shards(items, *self._paths(items))
 
         prefetch = max(1, prefetch)
         pairs = list(pairs)
@@ -344,7 +474,7 @@ class TryonPipeline:
                     items = [it for it, _, _ in items]
                 while len(items) < batch_size:
                     items.append(items[-1])
-                out = fetch(self.run_batch(items))      # queued, no wait
+                out = fetch(run(items))                 # queued, no wait
                 if next_chunk < len(chunks):
                     c = chunks[next_chunk]
                     inflight.append((c, [pool.submit(prep, p) for p in c]))
@@ -357,7 +487,7 @@ class TryonPipeline:
 
     @staticmethod
     def _finish(chunk, images, host, done):
-        if done is not None:
-            done.synchronize()
+        for event in done:
+            event.synchronize()
         out = host.numpy()[:len(chunk)]
         return (chunk, out) if images is None else (chunk, out, images)

@@ -503,6 +503,63 @@ def test_k1_fp32_serving_shapes(cuda, n, hw, ci, co):
 
 
 @pytest.mark.cuda
+def test_k1_fp32_on_a_second_card(cuda):
+    """The fp32 kernel's shared-memory attributes belong to the card that
+    is current when they are set: one process launches it on cuda:0, then
+    on cuda:1, at a serving shape, each against its plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for index in (0, 1):
+        dev = torch.device("cuda", index)
+        g = torch.Generator(device=dev).manual_seed(index)
+        x = torch.randn(8, 258, 258, 128, device=dev, generator=g)
+        w = torch.randn(3, 3, 128, 128, device=dev, generator=g) / 34.0
+        before = k1.conv3x3_valid.launches_fp32
+        got = k1.conv3x3_valid(x, w)
+        ref = k1.conv3x3_valid_plain(x, w)
+        torch.cuda.synchronize(dev)
+        assert k1.conv3x3_valid.launches_fp32 == before + 1
+        assert got.device == dev and got.shape == ref.shape
+        assert ((got - ref).abs().max().item()
+                <= 1e-5 * ref.abs().max().item()), dev
+
+
+@pytest.mark.cuda
+def test_mesh_on_the_card(cuda):
+    """TryonPipeline(mesh=...) on CUDA tensors: two shards on one card, and
+    with two cards or more one shard a card, against the pipeline without
+    a mesh at batch 4, within the JAX package's budget for its split;
+    narrow 512 px generator, fp32, "random" noise of strength 0.05."""
+    from pasta_tpu_torch.data.synthetic import make_garment, make_person
+    from pasta_tpu_torch.models import Generator
+    from pasta_tpu_torch.serving import TryonPipeline
+
+    model = Generator(seed=0, img_resolution=512, channel_base=2048,
+                      channel_max=128).eval().to(cuda)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("noise_strength"):
+                p.fill_(0.05)
+    kw = dict(mode="upper", noise_mode="random", seed=3)
+    single = TryonPipeline(model, **kw)
+    items = [single.prepare(make_person(s, jitter=3.0),
+                            make_garment(1000 + s, jitter=3.0))
+             for s in range(4)]
+    ref = single.run_batch(items)
+    meshes = [[cuda, cuda]]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(["cuda:0", "cuda:1"])
+    for mesh in meshes:
+        with TryonPipeline(model, mesh=mesh, **kw) as pipe:
+            got = pipe.run_batch(items)
+        diff = (got - ref).abs()
+        span = (ref.max() - ref.min()).item()
+        assert got.device == ref.device, mesh
+        assert diff.mean().item() / span < 1e-4, mesh
+        assert (diff > 0.01 * span).float().mean().item() < 1e-3, mesh
+
+
+@pytest.mark.cuda
 def test_run_stream_on_the_card(cuda, tmp_path):
     """run_stream on CUDA tensors (pinned staging, copies that do not block
     the host, each output fetched one batch late) yields run_batch's

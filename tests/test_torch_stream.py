@@ -2,7 +2,7 @@
 against the JAX package's, on the CPU: `run_stream` against the port's
 `run_batch` (bit for bit) and against the JAX `run_stream` on the same
 root, tail padding included; the serving CLI against the JAX CLI on the
-same `.npz`; the pipeline options that are not ported raising by name.
+same `.npz`; the pipeline options that are not valid raising by name.
 tests/test_torch_pipeline_options.py holds `cond` and `noise_mode`.
 
 The generator is the narrow 512px config (channel_base=2048,
@@ -209,8 +209,6 @@ def test_bench_stream_throughput_cycles_the_pairs(root, monkeypatch):
 
 def test_options_not_ported_raise(weights):
     model, _ = weights
-    with pytest.raises(NotImplementedError, match="mesh"):
-        serving.TryonPipeline(model, mesh=object())
     with pytest.raises(ValueError):
         serving.TryonPipeline(model, noise_mode="sometimes")
     with pytest.raises(ValueError):
