@@ -11,8 +11,7 @@ Measures both stages of serving and their overlap:
   * both: one TryonPipeline.run_stream pass over STREAM_PAIRS pairs
     (the root's pairs cycled; 64 batches of 8), host prep of
     later batches on 8 threads while the card runs
-    (stream_images_per_sec). bench.py's "pipelined_on_this_host" is the
-    lesser of the host and the device rate, computed, not measured.
+    (stream_images_per_sec), the one rate here measured end to end.
 
 The data: the dataset root given by --dataroot with its test_pairs.txt
 (bench.py reads its fixture root so), else a synthetic root of --persons
@@ -21,12 +20,11 @@ the `data` field says which. Weights are the port's seeded random
 generator. Upper mode, as bench.py.
 
 Prints one line per extra batch size (--also-batch, default 32) and, last,
-ONE JSON line with bench.py's fields ("metric", "value" in
-images/sec/chip, "vs_baseline" against bench.py's 64, "batch",
-"g_bf16_res", "ingest_ms", "warp_forward_ms", "cond", "warp_impl",
-"host_prep_images_per_sec", "host_cores", "pipelined_on_this_host") and
-"pipelined_on_this_host_is", "stream_images_per_sec", "stream_pairs",
-"device", "power_limit", "data". Needs a card.
+ONE JSON line: "metric", "value" (images/sec/chip of the device stages
+alone: batch / (ingest_ms + warp_forward_ms)), "batch", "g_bf16_res",
+"ingest_ms", "warp_forward_ms", "cond", "warp_impl",
+"host_prep_images_per_sec", "host_cores", "stream_images_per_sec",
+"stream_pairs", "device", "power_limit", "data". Needs a card.
 
     python3 -m pasta_tpu_torch.cli.bench [--batch 8] [--dataroot ROOT]
 """
@@ -45,7 +43,6 @@ import time
 
 import torch
 
-BASELINE_IMAGES_PER_SEC = 64.0   # bench.py's target, images/sec/chip
 MODE = "upper"
 STREAM_PAIRS = 512               # 64 batches of 8 a run_stream measurement
 
@@ -164,7 +161,6 @@ def run(batch=8, g_bf16_res=3, cond="device", iters=20, dataroot=None,
             return {
                 "metric": "tryon_512px_serving_throughput",
                 "value": round(ips, 2), "unit": "images/sec/chip",
-                "vs_baseline": round(ips / BASELINE_IMAGES_PER_SEC, 3),
                 "batch": b, "g_bf16_res": g_bf16_res,
                 "ingest_ms": round(t_ingest, 3),
                 "warp_forward_ms": round(t_main, 3),
@@ -179,9 +175,6 @@ def run(batch=8, g_bf16_res=3, cond="device", iters=20, dataroot=None,
         record.update(
             host_prep_images_per_sec=round(host_ips, 2),
             host_cores=os.cpu_count() or 1,
-            # bench.py's field: computed from the two rates, not measured
-            pipelined_on_this_host=round(min(host_ips, record["value"]), 2),
-            pipelined_on_this_host_is="min(host_prep_images_per_sec, value)",
             stream_images_per_sec=round(stream_throughput(
                 pipe, root, pairs, batch), 2),
             stream_pairs=STREAM_PAIRS,

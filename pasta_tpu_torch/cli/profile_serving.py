@@ -17,8 +17,11 @@ upper mode) and prints:
     of kernel intervals) over the device span, the idle share, and kernel
     time by kernel name;
   - the same run_stream passes under a device-only trace: img/s, the
-    host's ms queueing a batch and the device's idle share over the run
-    (how far the overlap of host prep and device work reaches).
+    host's ms a batch queueing it, waiting for its prep and waiting for
+    the previous batch's output (the pipeline's `run_batch`, `prep_wait`
+    and `fetch_wait` spans, pasta_tpu_torch/tracing.py) and the device's
+    idle share over the run (how far the overlap of host prep and device
+    work reaches).
 
 Run from the repository root:  python3 -m pasta_tpu_torch.cli.profile_serving
 """
@@ -90,11 +93,21 @@ def _idle_share(prof):
     return busy / 1e3, span / 1e3, 1 - busy / span, kernels
 
 
+def _span_ms(spans):
+    """{name: mean ms} of the pipeline's spans."""
+    ms = collections.defaultdict(list)
+    for s in spans:
+        ms[s.name].append((s.end - s.start) / 1e6)
+    return {name: float(np.mean(v)) for name, v in ms.items()}
+
+
 def _stream(pipe, trace=None):
     """run_stream over a synthetic root at 1, 2, 4 and 8 prep threads, each
     measured by cli.bench.stream_throughput; with `trace` = (profile,
-    activities), under a trace, with the host's ms queueing a batch and
-    the device's idle share."""
+    activities), under a trace, with the host's ms a batch in the
+    pipeline's `run_batch`, `prep_wait` and `fetch_wait` spans and the
+    device's idle share."""
+    from pasta_tpu_torch import tracing
     from pasta_tpu_torch.cli import bench
     from pasta_tpu_torch.data.synthetic import write_tryon_root
 
@@ -109,32 +122,22 @@ def _stream(pipe, trace=None):
                       f"batch {BATCH}, {workers} prep threads, untraced: "
                       f"{rate:.2f} img/s", flush=True)
             return
-        run_batch, queued = pipe.run_batch, []
-
-        def timed(items):
-            t = time.perf_counter()
-            out = run_batch(items)
-            queued.append(time.perf_counter() - t)
-            return out
-
-        pipe.run_batch = timed          # run_stream calls self.run_batch
-        try:
-            for workers in (1, 2, 4, 8):
-                prof = trace[0](activities=trace[1])
-                queued.clear()
-                rate = bench.stream_throughput(pipe, root, pairs, BATCH,
-                                               num_workers=workers,
-                                               context=prof)
-                busy, span, idle, _ = _idle_share(prof)
-                print(f"[stream] run_stream {bench.STREAM_PAIRS} pairs, "
-                      f"batch {BATCH}, {workers} prep threads, traced: "
-                      f"{rate:.2f} img/s | "
-                      # queued[0]: the warm-up batch, before the trace
-                      f"{1e3 * np.mean(queued[1:]):.1f} ms a batch queueing "
-                      f"run_batch | device busy {busy:.1f} ms over a span of "
-                      f"{span:.1f} ms, idle share {idle:.3f}", flush=True)
-        finally:
-            del pipe.run_batch
+        for workers in (1, 2, 4, 8):
+            prof = trace[0](activities=trace[1])
+            tracing.clear()
+            rate = bench.stream_throughput(pipe, root, pairs, BATCH,
+                                           num_workers=workers, context=prof)
+            busy, span, idle, _ = _idle_share(prof)
+            # the warm-up batch ran before the trace and recorded no span
+            ms = _span_ms(tracing.snapshot())
+            print(f"[stream] run_stream {bench.STREAM_PAIRS} pairs, "
+                  f"batch {BATCH}, {workers} prep threads, traced: "
+                  f"{rate:.2f} img/s | ms a batch: queueing run_batch "
+                  f"{ms['run_batch']:.1f}, prep_wait {ms['prep_wait']:.1f}, "
+                  f"fetch_wait {ms['fetch_wait']:.1f} | device busy "
+                  f"{busy:.1f} ms over a span of {span:.1f} ms, idle share "
+                  f"{idle:.3f}", flush=True)
+        tracing.clear()
 
 
 def main():

@@ -22,6 +22,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from . import tracing
 from .data import device_cond as dc
 from .data.device_warp import (MASK_THRESH, bound_from_mask_top, erode,
                                mirror_sleeves_device, normalize_patches_device,
@@ -234,6 +235,13 @@ class TryonPipeline:
     queues its shards; `close()` (or leaving a `with` block) ends them.
     Under noise_mode="random" every shard gets its rows of the noise that
     the pipeline without a mesh draws for the same batch and seed.
+
+    While a torch.profiler profile is active the pipeline records spans
+    (`tracing.py`): `prepare_pair` (children `decode`, `host_prepare`),
+    `run_batch` (children `upload`, `ingest`, `assemble`, `generator`;
+    under a mesh on the shards' threads), and in `run_stream`
+    `prep_wait`, `fetch` and `fetch_wait`; every span of one batch,
+    its prep on the pool's threads included, carries its batch id.
     """
 
     def __init__(self, model, mode="upper", noise_mode="const",
@@ -293,17 +301,20 @@ class TryonPipeline:
 
         pn, cn = pair
         sleeve_for = "person" if self.mode == "lower" else "clothes"
-        person = pp.load_person(
-            root, pn,
-            pose_raster="device" if self.cond == "device" else "host",
-            with_garment_parsing=(use_sleeve_mask
-                                  and sleeve_for == "person"))
-        # host_prepare never reads the clothes pose image
-        clothes = pp.load_person(
-            root, cn, pose_raster="device",
-            with_garment_parsing=(use_sleeve_mask
-                                  and sleeve_for == "clothes"))
-        item = self.prepare(person, clothes, use_sleeve_mask)
+        with tracing.span("prepare_pair"):
+            with tracing.span("decode"):
+                person = pp.load_person(
+                    root, pn,
+                    pose_raster="device" if self.cond == "device" else "host",
+                    with_garment_parsing=(use_sleeve_mask
+                                          and sleeve_for == "person"))
+                # host_prepare never reads the clothes pose image
+                clothes = pp.load_person(
+                    root, cn, pose_raster="device",
+                    with_garment_parsing=(use_sleeve_mask
+                                          and sleeve_for == "clothes"))
+            with tracing.span("host_prepare"):
+                item = self.prepare(person, clothes, use_sleeve_mask)
         return (item, person.image, clothes.image) if with_images else item
 
     def _upload(self, host_items, device=None):
@@ -326,27 +337,40 @@ class TryonPipeline:
         return batch
 
     def _forward(self, model, device, host_items, tiled, cut_windowed,
-                 generator):
-        inputs = assemble_inputs_device(
-            ingest_device(self._upload(host_items, device)), self.mode,
-            tiled=tiled, warp_impl=self.warp_impl, cut_windowed=cut_windowed)
-        _, finetune, _ = model(noise_mode=self.noise_mode,
-                               generator=generator, **inputs)
+                 generator, parent=None):
+        """Queue one batch (or shard) on `device`. A shard's spans run on
+        its device's thread: `parent` is its batch's `run_batch` span, and
+        each carries the device."""
+        at = {} if parent is None else {"parent": parent,
+                                        "device": str(device)}
+        with tracing.span("upload", **at):
+            batch = self._upload(host_items, device)
+        with tracing.span("ingest", **at):
+            host = ingest_device(batch)
+        with tracing.span("assemble", **at):
+            inputs = assemble_inputs_device(
+                host, self.mode, tiled=tiled, warp_impl=self.warp_impl,
+                cut_windowed=cut_windowed)
+        with tracing.span("generator", **at):
+            _, finetune, _ = model(noise_mode=self.noise_mode,
+                                   generator=generator, **inputs)
         return finetune
 
-    def _queue_shards(self, device, stream, shards, tiled, cut_windowed):
+    def _queue_shards(self, device, stream, shards, tiled, cut_windowed,
+                      parent):
         """One device's host thread: queue its shards' work, in order, on
         `stream`; returns [(shard index, finetune)] without waiting."""
         on = (torch.cuda.stream(stream) if device.type == "cuda"
               else contextlib.nullcontext())
         with torch.inference_mode(), on:
             return [(k, self._forward(self._replicas[device], device, items,
-                                      tiled, cut_windowed, noise))
+                                      tiled, cut_windowed, noise, parent))
                     for k, items, noise in shards]
 
-    def _run_shards(self, host_items, tiled, cut_windowed):
+    def _run_shards(self, host_items, tiled, cut_windowed, parent):
         """The batch split over the mesh: the finetune image of each shard
-        on its device, queued and not waited for."""
+        on its device, queued and not waited for; `parent` is the batch's
+        `run_batch` span."""
         size = len(self.mesh)
         assert len(host_items) % size == 0, (
             f"batch {len(host_items)} not divisible by mesh size {size}")
@@ -364,7 +388,7 @@ class TryonPipeline:
             self._pools[d].submit(
                 self._queue_shards, d,
                 torch.cuda.current_stream(d) if d.type == "cuda" else None,
-                shards, tiled, cut_windowed)
+                shards, tiled, cut_windowed, parent)
             for d, shards in work.items()]
         outs = [None] * size
         for f in futures:
@@ -380,6 +404,21 @@ class TryonPipeline:
         self.last_tiled, self.last_cut_windowed = tiled, cut_windowed
         return tiled, cut_windowed
 
+    def _queue(self, host_items):
+        """The batch's outputs, one a shard of the mesh (one without a
+        mesh), queued and not waited for, inside its `run_batch` span."""
+        tiled, cut_windowed = self._paths(host_items)
+        with tracing.batch(), tracing.span(
+                "run_batch", size=len(host_items), tiled=tiled,
+                cut_windowed=cut_windowed) as span:
+            if self.mesh is not None:
+                return self._run_shards(host_items, tiled, cut_windowed,
+                                        span)
+            generator = (self._noise.next() if self.noise_mode == "random"
+                         else None)
+            return [self._forward(self.model, self.device, host_items, tiled,
+                                  cut_windowed, generator)]
+
     @torch.inference_mode()
     def run_batch(self, host_items):
         """host_prepare dicts -> finetune images [B, H, W, 3] on the device
@@ -390,16 +429,12 @@ class TryonPipeline:
         both choices are made over the whole batch before it is split, and
         the shards' outputs are gathered on the mesh's first device.
         """
-        tiled, cut_windowed = self._paths(host_items)
-        if self.mesh is not None:
-            # device-to-device copies, ordered after each source's stream
-            return torch.cat([
-                o.to(self.device, non_blocking=True)
-                for o in self._run_shards(host_items, tiled, cut_windowed)])
-        generator = (self._noise.next() if self.noise_mode == "random"
-                     else None)
-        return self._forward(self.model, self.device, host_items, tiled,
-                             cut_windowed, generator)
+        outs = self._queue(host_items)
+        if self.mesh is None:
+            return outs[0]
+        # device-to-device copies, ordered after each source's stream
+        return torch.cat([o.to(self.device, non_blocking=True)
+                          for o in outs])
 
     def run_stream(self, root, pairs, batch_size=8, use_sleeve_mask=True,
                    num_workers=8, prefetch=2, with_images=False):
@@ -427,9 +462,14 @@ class TryonPipeline:
 
         root = as_root(root)
 
-        def prep(pair):
-            return self.prepare_pair(root, pair, use_sleeve_mask,
-                                     with_images)
+        def prep(pair, bid):
+            with tracing.batch(bid):
+                return self.prepare_pair(root, pair, use_sleeve_mask,
+                                         with_images)
+
+        def submit(chunk):
+            bid = tracing.new_batch()     # the id its spans share
+            return chunk, bid, [pool.submit(prep, p, bid) for p in chunk]
 
         def fetch(outs):
             """Queue the copy of a batch's output, shard by shard, into its
@@ -451,43 +491,45 @@ class TryonPipeline:
             return host, done
 
         def run(items):
-            if self.mesh is None:
-                return [self.run_batch(items)]
-            return self._run_shards(items, *self._paths(items))
+            return ([self.run_batch(items)] if self.mesh is None
+                    else self._queue(items))
 
         prefetch = max(1, prefetch)
         pairs = list(pairs)
         chunks = [pairs[i:i + batch_size]
                   for i in range(0, len(pairs), batch_size)]
         with concurrent.futures.ThreadPoolExecutor(num_workers) as pool:
-            inflight = collections.deque(
-                (c, [pool.submit(prep, p) for p in c])
-                for c in chunks[:prefetch])
+            inflight = collections.deque(submit(c)
+                                         for c in chunks[:prefetch])
             next_chunk = prefetch
             pending = None
             while inflight:
-                chunk, futs = inflight.popleft()
-                items = [f.result() for f in futs]
+                chunk, bid, futs = inflight.popleft()
+                with tracing.span("prep_wait", batch=bid):
+                    items = [f.result() for f in futs]
                 images = None
                 if with_images:
                     images = [(p, c) for _, p, c in items]
                     items = [it for it, _, _ in items]
                 while len(items) < batch_size:
                     items.append(items[-1])
-                out = fetch(run(items))                 # queued, no wait
+                with tracing.batch(bid):
+                    outs = run(items)                   # queued, no wait
+                with tracing.span("fetch", batch=bid):
+                    out = fetch(outs)
                 if next_chunk < len(chunks):
-                    c = chunks[next_chunk]
-                    inflight.append((c, [pool.submit(prep, p) for p in c]))
+                    inflight.append(submit(chunks[next_chunk]))
                     next_chunk += 1
                 if pending is not None:
                     yield self._finish(*pending)
-                pending = (chunk, images, *out)
+                pending = (chunk, bid, images, *out)
             if pending is not None:
                 yield self._finish(*pending)
 
     @staticmethod
-    def _finish(chunk, images, host, done):
-        for event in done:
-            event.synchronize()
+    def _finish(chunk, bid, images, host, done):
+        with tracing.span("fetch_wait", batch=bid):
+            for event in done:
+                event.synchronize()
         out = host.numpy()[:len(chunk)]
         return (chunk, out) if images is None else (chunk, out, images)
