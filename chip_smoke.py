@@ -22,8 +22,9 @@ synthetic inputs, in phases:
   3. kernel      -- K1 against its plain version at the serving shapes
                     (bf16) and, in bf16 and fp32, at two ragged shapes, with
                     the error bound and CUDA-event times
-  4. main        -- run_batch on tiled and full-path batches; K1's launch
-                    count must equal its in-scope convs per batch
+  4. main        -- run_batch on tiled and full-path batches; K1's kernels
+                    in a CUDA trace of those batches (CUDA graph replays)
+                    must number its in-scope convs per batch
   5. check       -- a small fp32 serving run on the card against the CPU
   6. kernel-train -- K2 and K3 (from the positions q) against their plain
                     versions at the training shapes (bf16) and at ragged
@@ -102,8 +103,9 @@ synthetic inputs, in phases:
                     cli.test.main at batch 8 with --pipeline parity (fp32),
                     --pipeline serving --g-bf16-res 3 and --pipeline
                     serving in fp32: one composite PNG per pair of its
-                    size, finite outputs, K1's launches (26 a batch, all
-                    fp32 where the generator is), serving in fp32 against
+                    size, finite outputs, K1's kernels in a CUDA trace of
+                    each run (26 a batch, all fp32 where the generator is,
+                    a CUDA graph's replays among them), serving in fp32 against
                     parity within the serving budget (bf16 serving's gap
                     printed); every K1 shape those runs launched against
                     plain with times, bound and cuDNN's (fp32 also at N =
@@ -115,7 +117,8 @@ synthetic inputs, in phases:
  15. evaluation  -- seeded detectors at full width written as .npz;
                     cli.test --pipeline serving --g-bf16-res 3 on a root of
                     16 persons, each with 4 others' garments (64
-                    composites); cli.calc_metrics --metrics
+                    composites; K1's kernels in its trace, 26 a batch);
+                    cli.calc_metrics --metrics
                     fid,kid,inception_score,pr,ppl --crop-generated
                     against the persons' real images (pr on VGG16 fc7, ppl
                     on VGG16 LPIPS over the fashion Generator), each
@@ -203,6 +206,7 @@ N_TIMED = 3        # timed tiled batches after one warm-up batch
 # conv_mlp each; the spade encoder's two 64-ch resblock convs at 512^2 and
 # one 128-ch conv at 256^2.
 K1_PER_BATCH = 26
+K1_KERNELS = ("conv3x3_f32_kernel", "conv3x3_bf16_kernel")
 
 # Launches of one regular training step of the fashion preset at batch 4
 # (mbstd group 4 divides every sub-batch, so the fake/real streams of one
@@ -465,7 +469,7 @@ def _items(pipe, seeds, jitter):
             for s in seeds]
 
 
-def phase_main(k1, batch, n_timed):
+def phase_main(batch, n_timed):
     from pasta_tpu_torch.models import Generator
     from pasta_tpu_torch.serving import TryonPipeline
 
@@ -490,18 +494,18 @@ def phase_main(k1, batch, n_timed):
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    k1.conv3x3_valid.launches = 0
-    t0 = time.perf_counter()
-    for _ in range(n_timed):
-        out = pipe.run_batch(tiled_items)
-    torch.cuda.synchronize()
-    t_tiled = time.perf_counter() - t0
-    tiled_path = pipe.last_tiled
-    t0 = time.perf_counter()
-    out_full = pipe.run_batch(full_items)
-    torch.cuda.synchronize()
-    t_full = time.perf_counter() - t0
-    launches = k1.conv3x3_valid.launches
+    with _k1_traced(dev) as seen:
+        t0 = time.perf_counter()
+        for _ in range(n_timed):
+            out = pipe.run_batch(tiled_items)
+        torch.cuda.synchronize()
+        t_tiled = time.perf_counter() - t0
+        tiled_path = pipe.last_tiled
+        t0 = time.perf_counter()
+        out_full = pipe.run_batch(full_items)
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+    launches = seen["launches"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     check(tiled_path and not pipe.last_tiled, "path selection")
@@ -510,10 +514,11 @@ def phase_main(k1, batch, n_timed):
         check(bool(torch.isfinite(o).all()), "non-finite output")
     n_batches = n_timed + 1
     check(launches == K1_PER_BATCH * n_batches,
-          f"K1 launches {launches} != {K1_PER_BATCH} x {n_batches}")
+          f"K1 kernels traced {launches} != {K1_PER_BATCH} x {n_batches}")
     print(f"[main] run_batch x{n_timed} tiled: {batch * n_timed / t_tiled:.2f}"
           f" img/s ({1e3 * t_tiled / n_timed:.1f} ms/batch of {batch}) | full"
-          f" path x1: {batch / t_full:.2f} img/s | K1 launches {launches} ="
+          f" path x1: {batch / t_full:.2f} img/s | K1 kernels traced "
+          f"{launches} ="
           f" {K1_PER_BATCH} x {n_batches} batches | peak "
           f"{peak:.2f} GiB | out range [{out.min().item():.3f}, "
           f"{out.max().item():.3f}]", flush=True)
@@ -975,6 +980,27 @@ def _launches(k1):
 def _sync(dev):
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def _k1_traced(dev):
+    """K1's kernels that ran on the cards inside the block, read from a
+    torch.profiler (CUPTI) trace of it, so those of a replayed CUDA graph
+    too, which K1's launch counters do not see: the dict yielded gets
+    `launches` and `fp32` at the block's end (0 and 0 off a card)."""
+    seen = {"launches": 0, "fp32": 0}
+    if torch.device(dev).type != "cuda":
+        yield seen
+        return
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        yield seen
+        _sync_cards()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen["fp32"] = sum(K1_KERNELS[0] in n for n in names)
+    seen["launches"] = seen["fp32"] + sum(K1_KERNELS[1] in n for n in names)
 
 
 def _one_step(k1, state, step, batch, gen, dev, **kw):
@@ -1942,31 +1968,47 @@ def _composites(outdir, pairs):
 
 def _cli_test_run(k1, shift, shapes, argv, dev):
     """cli.test.main on `argv`: the generator's finetune outputs (every
-    batch's, through a subclass put in place of models.Generator), K1's
-    launches and fp32 launches from 0, host seconds."""
+    batch's: the parity pipeline's through a subclass put in place of
+    models.Generator, the serving pipeline's as `run_batch` returns them,
+    since a replayed CUDA graph calls no forward), K1's kernels and those
+    in fp32 in a CUDA trace of the run, host seconds."""
     from pasta_tpu_torch import models
     from pasta_tpu_torch.cli import test as cli_test
+    from pasta_tpu_torch.serving import TryonPipeline
 
     outs = []
     generator = models.Generator
+    run_batch = TryonPipeline.run_batch
+    serving = []
 
     class Recorded(generator):
         def forward(self, *args, **kw):
             res = super().forward(*args, **kw)
-            outs.append(res[1].float().cpu())
+            if not serving:
+                outs.append(res[1].float().cpu())
             return res
 
+    def recorded_run_batch(pipe, items):
+        serving.append(1)
+        try:
+            out = run_batch(pipe, items)
+        finally:
+            serving.pop()
+        outs.append(out.float().cpu())
+        return out
+
     models.Generator = Recorded
-    k1.conv3x3_valid.launches = k1.conv3x3_valid.launches_fp32 = 0
+    TryonPipeline.run_batch = recorded_run_batch
     t0 = time.perf_counter()
     try:
-        with _path_shapes(k1, shift, shapes):
+        with _k1_traced(dev) as seen, _path_shapes(k1, shift, shapes):
             cli_test.main(argv + ["--device", dev])
-        _sync(dev)
+            _sync(dev)
+            secs = time.perf_counter() - t0
     finally:
         models.Generator = generator
-    return (torch.cat(outs), k1.conv3x3_valid.launches,
-            k1.conv3x3_valid.launches_fp32, time.perf_counter() - t0)
+        TryonPipeline.run_batch = run_batch
+    return torch.cat(outs), seen["launches"], seen["fp32"], secs
 
 
 def _budget(a, b):
@@ -2038,8 +2080,8 @@ def phase_inference(k1, shift, dev="cuda"):
     """The try-on inference run (cli/test.py, data/testsets.py,
     TryonPipeline.run_stream, native/, cli/bench.py) on a synthetic root
     of N_INFER persons with a test_pairs.txt of as many pairs. Returns
-    (K1 launches of the cli.test runs, their fp32 share, the rows of every
-    K1 shape they launched)."""
+    (K1 kernels traced in the cli.test runs, their fp32 share, the rows
+    of every K1 shape they launched)."""
     from pasta_tpu_torch import native
     from pasta_tpu_torch.cli import bench
     from pasta_tpu_torch.data.synthetic import write_tryon_root
@@ -2078,19 +2120,19 @@ def phase_inference(k1, shift, dev="cuda"):
                   f"{bool(torch.isfinite(out).all())}")
             card = torch.device(dev).type == "cuda"
             check(not card or launches == K1_PER_BATCH * n_batches,
-                  f"cli.test {tag}: K1 launches {launches} != "
+                  f"cli.test {tag}: K1 kernels traced {launches} != "
                   f"{K1_PER_BATCH} x {n_batches}")
             in_fp32 = "--g-bf16-res" not in extra
             check(not card or fp32 == (launches if in_fp32 else 0),
-                  f"cli.test {tag}: {fp32} of {launches} K1 launches took "
+                  f"cli.test {tag}: {fp32} of {launches} K1 kernels took "
                   f"the fp32 kernel (fp32 run: {in_fp32})")
             runs[tag] = dict(out=out[:len(pairs)], launches=launches,
                              fp32=fp32)
             print(f"[inference] cli.test --pipeline {tag} --batchsize "
                   f"{BATCH}: {n} composites, {secs:.1f} s "
                   f"({n / secs:.2f} img/s with the model's build) | K1 "
-                  f"launches {launches} ({fp32} fp32) = {K1_PER_BATCH} x "
-                  f"{n_batches} batches", flush=True)
+                  f"kernels traced {launches} ({fp32} fp32) = "
+                  f"{K1_PER_BATCH} x {n_batches} batches", flush=True)
         # The pipelines against each other in fp32, at the serving budget;
         # the bf16 serving run against the fp32 reference at BF16_GAP. bf16
         # in the top three resolutions moves the output more than the two
@@ -2260,21 +2302,21 @@ def phase_evaluation(k1, shift, dev="cuda", small=False):
             f.write("".join(f"{c} {p}\n" for p, c in pairs))
         gen = os.path.join(tmp, "composites")
         serve_batch = 8
-        k1.conv3x3_valid.launches = k1.conv3x3_valid.launches_fp32 = 0
         t0 = time.perf_counter()
-        cli_test.main(["--dataroot", root, "--testtxt", "test_pairs.txt",
-                       "--testpart", "upper", "--batchsize", str(serve_batch),
-                       "--outdir", gen, "--pipeline", "serving",
-                       "--g-bf16-res", "3", "--device", dev])
-        _sync(dev)
-        served = k1.conv3x3_valid.launches
+        with _k1_traced(dev) as seen:
+            cli_test.main(["--dataroot", root, "--testtxt", "test_pairs.txt",
+                           "--testpart", "upper", "--batchsize",
+                           str(serve_batch), "--outdir", gen, "--pipeline",
+                           "serving", "--g-bf16-res", "3", "--device", dev])
+        served = seen["launches"]
         n = _composites(gen, pairs)
         print(f"[evaluation] cli.test --pipeline serving --g-bf16-res 3: {n} "
               f"composites of {persons} persons x {EVAL_GARMENTS} garments in "
-              f"{time.perf_counter() - t0:.1f} s | K1 launches {served}",
+              f"{time.perf_counter() - t0:.1f} s | K1 kernels traced "
+              f"{served}",
               flush=True)
         check(not card or served == K1_PER_BATCH * -(-n // serve_batch),
-              f"evaluation: cli.test K1 launches {served}")
+              f"evaluation: cli.test K1 kernels traced {served}")
 
         launched += served
         k1.conv3x3_valid.launches = k1.conv3x3_valid.launches_fp32 = 0
@@ -2828,12 +2870,9 @@ def _hold_split(what, got, ref, bf16, alone=None):
     return gap
 
 
-def _alone(model, items, shards):
-    """The pipeline without a mesh ("const") on each shard's rows,
+def _alone(pipe, items, shards):
+    """`pipe`, a pipeline without a mesh ("const"), on each shard's rows,
     concatenated."""
-    from pasta_tpu_torch.serving import TryonPipeline
-
-    pipe = TryonPipeline(model, mode="upper")
     b = len(items) // shards
     return torch.cat([pipe.run_batch(items[k * b:(k + 1) * b])
                       for k in range(shards)])
@@ -2988,17 +3027,21 @@ def _mesh_cards(k1, model, items, root, pairs, tag):
     t0 = time.perf_counter()
     single = TryonPipeline(model, mode="upper")
     bf16 = "bf16" in tag
+    ones = [single]
     with TryonPipeline(model, mode="upper", mesh=cards) as mesh:
         gaps = {}
         for noise_mode in ("const", "random"):
             one = TryonPipeline(model, mode="upper", noise_mode=noise_mode,
                                 seed=1)
+            ones.append(one)
             with TryonPipeline(model, mode="upper", noise_mode=noise_mode,
                                seed=1, mesh=cards) as split:
                 got = split.run_batch(items)
             check(got.device == cards[0], f"mesh (e): output on {got.device}")
-            alone = (_alone(model, items, n)
-                     if bf16 and noise_mode == "const" else None)
+            alone = None
+            if bf16 and noise_mode == "const":
+                ones.append(TryonPipeline(model, mode="upper"))
+                alone = _alone(ones[-1], items, n)
             gaps[noise_mode] = _hold_split(
                 f"mesh (e) {tag} {noise_mode}, {n} cards", got,
                 one.run_batch(items), bf16, alone)
@@ -3021,13 +3064,14 @@ def _mesh_cards(k1, model, items, root, pairs, tag):
         idle = _idle_by_card(prof)
     launches = k1.conv3x3_valid.launches
     fp32 = k1.conv3x3_valid.launches_fp32
-    # stream_throughput: a warm-up batch, then the pairs in whole batches
-    stream_batches = {"mesh": 1 + -(-bench.STREAM_PAIRS // len(items)),
-                      "one": 1 + -(-bench.STREAM_PAIRS // BATCH)}
-    want = (K1_PER_BATCH * n * (2 + (1 + MESH_TIMED)
-                                + stream_batches["mesh"] + 2 + bf16)
-            + K1_PER_BATCH * (2 + 2 * (1 + MESH_TIMED)
-                              + stream_batches["one"]))
+    # stream_throughput: a warm-up batch, then the pairs in whole batches;
+    # the pipelines without a mesh launch K1 from the host only in the
+    # batches that replay no CUDA graph (a replay's kernels are the
+    # graph's, phases 4, 14 and 15 count those in a trace)
+    mesh_batches = 1 + -(-bench.STREAM_PAIRS // len(items))
+    want = (K1_PER_BATCH * n * (2 + (1 + MESH_TIMED) + mesh_batches + 2)
+            + K1_PER_BATCH * sum(p.graph_counts["capture"]
+                                 + p.graph_counts["eager"] for p in ones))
     check(launches == want and fp32 == (launches if "fp32" in tag else 0),
           f"mesh (e) {tag}: K1 launches {launches} ({fp32} fp32) != {want}")
     check(len(idle) == n, f"mesh (e) {tag}: kernels on cards {list(idle)}")
@@ -3099,7 +3143,7 @@ def phase_mesh(k1, dev="cuda", small=False):
                 _k1_rows_invariant(k1, d0, dtype, batch)
             parted = _first_parting(TryonPipeline(model, mode="upper"), items)
             k1.conv3x3_valid.launches = k1.conv3x3_valid.launches_fp32 = 0
-            refs, gaps = {}, {}
+            refs, gaps, alone_eager = {}, {}, 0
             for noise_mode in ("const", "random"):
                 kw = dict(mode="upper", noise_mode=noise_mode, seed=1)
                 refs[noise_mode] = TryonPipeline(model, **kw).run_batch(items)
@@ -3115,7 +3159,10 @@ def phase_mesh(k1, dev="cuda", small=False):
                     got = two.run_batch(items)
                 alone = None
                 if bf16_res and noise_mode == "const":
-                    alone = _alone(model, items, 2)
+                    solo = TryonPipeline(model, mode="upper")
+                    alone = _alone(solo, items, 2)
+                    alone_eager = (solo.graph_counts["capture"]
+                                   + solo.graph_counts["eager"])
                     gaps[f"without a mesh, batch {batch // 2} twice"] = (
                         _split_gap(alone, refs[noise_mode]))
                 gaps[noise_mode] = _hold_split(
@@ -3137,11 +3184,11 @@ def phase_mesh(k1, dev="cuda", small=False):
                           f"mesh (c) {tag}: run_stream batch {i} differs "
                           "from the mesh's run_batch")
             _sync(dev)
-            # (d) 26 a shard: (a) 2 x (1 + 1), (b) 2 x 2 (bf16: and the
-            # two shards alone), (c) 2 x 2 a batch
+            # (d) 26 a shard: (a) 2 x (1 + 1), (b) 2 x 2, (c) 2 x 2 a
+            # batch; bf16: the two shards alone, of which K1's counters
+            # see those that replayed no CUDA graph
             n_batches = n_stream // batch
-            want = K1_PER_BATCH * (4 + 4 + 2 * bool(bf16_res)
-                                   + 4 * n_batches)
+            want = K1_PER_BATCH * (4 + 4 + alone_eager + 4 * n_batches)
             launches = k1.conv3x3_valid.launches
             fp32 = k1.conv3x3_valid.launches_fp32
             check(not card or (launches == want and fp32 == (
@@ -3210,7 +3257,7 @@ def main(argv=None):
         print(smi)
         return
     rows = phase_kernel(k1, BATCH)
-    launches = phase_main(k1, BATCH, N_TIMED)
+    launches = phase_main(BATCH, N_TIMED)
     phase_check()
     train_rows = phase_kernel_train(k1, shift)
     counts, n_fp32, step_s = phase_train(k1)

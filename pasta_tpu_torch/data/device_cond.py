@@ -23,6 +23,24 @@ _JOINT_COLORS = np.asarray(KPT_COLORS[:18], np.float32)    # [18, 3]
 
 GARMENT_SRC_LABELS = (5, 6, 7, 9, 12)  # tops/dresses/pants/skirt sources
 
+_RESIDENT = {}
+
+
+def resident(name, device, make):
+    """The constant `name` on `device`: `make()` (a CPU tensor) copied up
+    at the first call for that device, the same tensor at every later
+    one. A copy from pageable host memory waits for the device's queue to
+    drain, and a CUDA graph cannot capture one, so the device work of a
+    batch uploads no constant of its own."""
+    key = (name, torch.device(device))
+    t = _RESIDENT.get(key)
+    if t is None:
+        # a normal tensor even when made under inference_mode, so that
+        # autograd may save it
+        with torch.inference_mode(False):
+            t = _RESIDENT.setdefault(key, make().to(device))
+    return t
+
 
 def _grid(h, w, device):
     yy = torch.arange(h, dtype=torch.float32, device=device)[:, None]
@@ -45,8 +63,10 @@ def draw_pose_device(limb_pts, limb_valid, joint_pts, joint_valid,
     yy, xx = _grid(res, res, dev)
     canvas = torch.zeros((limb_pts.shape[0], res, res, 3),
                          dtype=torch.float32, device=dev)
-    limb_colors = torch.from_numpy(_LIMB_COLORS).to(dev)
-    joint_colors = torch.from_numpy(_JOINT_COLORS).to(dev)
+    limb_colors = resident("limb_colors", dev,
+                           lambda: torch.from_numpy(_LIMB_COLORS))
+    joint_colors = resident("joint_colors", dev,
+                            lambda: torch.from_numpy(_JOINT_COLORS))
 
     r_line2 = (thickness / 5.0 * 3.45) ** 2
     for i in range(len(LIMB_SEQ)):

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.projective_warp import warp_perspective_matmul_multi
-from .device_cond import dilate_cv
+from .device_cond import dilate_cv, resident
 from .geometry import BODY_PARTS, LOWER_PARTS, SLEEVE_PARTS
 from .host import PASTE_TILE
 
@@ -89,10 +89,20 @@ def warp_perspective_multi(src_stack, src_idx, m_dst_to_src, out_h, out_w):
     b, _, h, w, _ = src_stack.shape
     sx, sy = _src_coords(m_dst_to_src, out_h, out_w)
     bidx = torch.arange(b, device=src_stack.device)[:, None, None, None]
-    sel = torch.as_tensor(np.asarray(src_idx), device=src_stack.device)
+    src_idx = np.asarray(src_idx)
+    sel = resident(("src_idx",) + tuple(src_idx.tolist()), src_stack.device,
+                   lambda: torch.as_tensor(src_idx))
     sel = sel[None, :, None, None]
     return _bilinear(sx, sy, h, w,
                      lambda yi, xi: src_stack[bidx, sel, yi, xi])
+
+
+def _lower(x):
+    """x's LOWER_PARTS rows along dim 1, through an index kept on x's
+    device (indexing by the tuple would copy one up at every call)."""
+    idx = resident("lower_parts", x.device,
+                   lambda: torch.tensor(LOWER_PARTS))
+    return x.index_select(1, idx)
 
 
 def erode(mask, k):
@@ -167,22 +177,20 @@ def _cuts(upper_img, lower_img, upper_mask, lower_mask, sleeve_mask,
     """All 15 cut warps (10 upper parts + 5 lower) as one multi-part warp.
     Returns (cuts [B, 15, p, p, 4], cut_valid [B, 15])."""
     n_parts = len(BODY_PARTS)
-    lower_parts = list(LOWER_PARTS)
     src_stack = _cut_src_stack(upper_img, lower_img, upper_mask,
                                lower_mask, sleeve_mask, sleeve_valid)
     cut_src_idx = np.array(
         [1 if i in SLEEVE_PARTS else 0 for i in range(n_parts)]
-        + [2] * len(lower_parts))
-    cut_m = torch.cat([upper_cut_m, lower_cut_m[:, lower_parts]], dim=1)
+        + [2] * len(LOWER_PARTS))
+    cut_m = torch.cat([upper_cut_m, _lower(lower_cut_m)], dim=1)
     cut_valid = torch.cat(
-        [part_valid[:, :, 0], part_valid[:, lower_parts, 1]], dim=1).float()
+        [part_valid[:, :, 0], _lower(part_valid)[:, :, 1]], dim=1).float()
     cuts = warp_multi(src_stack, cut_src_idx, cut_m, patch, patch, **cut_kw)
     return cuts * cut_valid[:, :, None, None, None], cut_valid
 
 
 def _paste_valid(part_valid):
-    lower_parts = list(LOWER_PARTS)
-    return torch.cat([part_valid[:, :, 2], part_valid[:, lower_parts, 2]],
+    return torch.cat([part_valid[:, :, 2], _lower(part_valid)[:, :, 2]],
                      dim=1).float()
 
 
@@ -223,17 +231,16 @@ def normalize_patches_device(
     """
     b, h, w, _ = upper_img.shape
     n_parts = len(BODY_PARTS)
-    lower_parts = list(LOWER_PARTS)
     warp_impl = resolve_warp_impl(warp_impl)
     warp_multi = _warp_multi(warp_impl)
     cuts, cut_valid = _cuts(upper_img, lower_img, upper_mask, lower_mask,
                             sleeve_mask, upper_cut_m, lower_cut_m,
                             part_valid, sleeve_valid, patch, warp_multi)
 
-    paste_m = torch.cat([paste_m_inv, paste_m_inv[:, lower_parts]], dim=1)
+    paste_m = torch.cat([paste_m_inv, _lower(paste_m_inv)], dim=1)
     paste_valid = _paste_valid(part_valid)
     pasted = warp_multi(
-        cuts, np.arange(n_parts + len(lower_parts)), paste_m, h, w)
+        cuts, np.arange(n_parts + len(LOWER_PARTS)), paste_m, h, w)
     d_imgs = pasted[..., 0:3]
     d_masks = pasted[..., 3:4]
     d_masks = (erode(d_masks.reshape(-1, h, w, 1), erode_k)
@@ -250,7 +257,7 @@ def normalize_patches_device(
         if track_wo_sleeve and ii not in SLEEVE_PARTS:
             denorm_upper_wo_sleeve = (d_imgs[:, ii] * m
                                       + denorm_upper_wo_sleeve * (1 - m))
-    for jj in range(len(lower_parts)):
+    for jj in range(len(LOWER_PARTS)):
         m = d_masks[:, n_parts + jj]
         denorm_lower = d_imgs[:, n_parts + jj] * m + denorm_lower * (1 - m)
     return _norm_outputs(cuts, denorm_upper, denorm_lower,
@@ -275,8 +282,7 @@ def normalize_patches_device_tiled(
     """
     b, h, w, _ = upper_img.shape
     n_parts = len(BODY_PARTS)
-    lower_parts = list(LOWER_PARTS)
-    n_all = n_parts + len(lower_parts)
+    n_all = n_parts + len(LOWER_PARTS)
     dev = upper_img.device
     warp_impl = resolve_warp_impl(warp_impl)
     warp_multi = _warp_multi(warp_impl)
@@ -291,7 +297,7 @@ def normalize_patches_device_tiled(
 
     # Fold the tile translation into the dst->src matrices:
     # dst = t + off  =>  m_tile = m @ T(off).
-    paste_m = torch.cat([paste_m_inv, paste_m_inv[:, lower_parts]], dim=1)
+    paste_m = torch.cat([paste_m_inv, _lower(paste_m_inv)], dim=1)
     off = tile_offsets.float()
     t_off = torch.eye(3, device=dev).repeat(b, n_all, 1, 1)
     t_off[:, :, 0, 2] = off[:, :, 1]  # x

@@ -58,7 +58,9 @@ outside K1's scope (C_out not in {64, 128}) is the plain conv, chosen from
 the shape. `conv3x3_valid.launches` counts forward launches,
 `.launches_bwd` the launches made for input gradients, `.launches_fp32`
 those of either kind that took the fp32 kernel; each over every card and
-host thread of the process.
+host thread of the process. They count the launches this module makes:
+a launch captured into a CUDA graph runs nothing and is not counted, nor
+are the kernels a graph's replay runs (a trace of the card sees those).
 """
 
 from __future__ import annotations
@@ -200,6 +202,8 @@ def _launch(x, w, out_w, bwd, pad):
     if _plain_route(x):
         return conv3x3_valid_plain(x, w, out_w, pad)
     out = _kernel(x, w, out_w, pad)
+    if x.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        return out
     with _count_lock:       # a mesh queues its cards from several threads
         if x.dtype == torch.float32:
             conv3x3_valid.launches_fp32 += 1

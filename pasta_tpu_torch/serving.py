@@ -9,6 +9,11 @@ runs as torch ops on the device. The two-stage API of the JAX package
 (ingest_device, then assemble_inputs_device) is kept; its TPU layout
 reason does not apply. `TryonPipeline.run_stream` overlaps the host prep
 of later batches with the device's work on the current one.
+
+On a card, `run_batch` queues a batch's device work (ingest, assemble,
+generator: some 3,300 kernels) as one replay of a CUDA graph captured for
+its batch key (batch size, each uploaded array's shape and dtype, the
+path); a server that sends many batch sizes holds one graph a size.
 """
 
 from __future__ import annotations
@@ -16,8 +21,9 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import threading
 import weakref
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -209,6 +215,30 @@ def _close_pools(pools):
         pool.shutdown(wait=True)
 
 
+def _stage(host_items, pin):
+    """Each array of the items stacked into one host tensor, in pinned
+    memory where `pin`."""
+    batch = {}
+    for k in host_items[0]:
+        if k in ("tiles_fit", "cut_fits"):
+            continue
+        arrs = [np.asarray(it[k]) for it in host_items]
+        dtype = torch.from_numpy(np.empty(0, arrs[0].dtype)).dtype
+        host = torch.empty((len(arrs),) + arrs[0].shape, dtype=dtype,
+                           pin_memory=pin)
+        np.stack(arrs, out=host.numpy())
+        batch[k] = host
+    return batch
+
+
+class _Graph(NamedTuple):
+    """One batch key's captured device work: the graph and the device
+    tensors it reads (`upload` copies a batch into them) and writes."""
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Dict[str, torch.Tensor]
+    output: torch.Tensor
+
+
 class TryonPipeline:
     """Batched serving: host_prepare -> ingest_device ->
     assemble_inputs_device -> Generator, on one device or split over a
@@ -236,12 +266,28 @@ class TryonPipeline:
     Under noise_mode="random" every shard gets its rows of the noise that
     the pipeline without a mesh draws for the same batch and seed.
 
+    On a card, without a mesh and with noise_mode other than "random",
+    `run_batch` runs a batch's device work as one replay of a CUDA graph:
+    the first batch of a key (batch size, each uploaded array's shape and
+    dtype, the tiled path, the cut windows where the warps read them,
+    `mode`, `warp_impl`) runs eagerly on a side stream, and its work is
+    then captured; later batches of the key copy their arrays into the
+    graph's inputs and replay it, and get a copy of its output (a caller
+    may keep an image while later batches run). The graphs of a pipeline
+    share one memory pool and one set of input tensors a key: a lock lets
+    one thread at a time copy in, replay and copy out, and an event orders
+    that device work after the previous batch's, whatever stream each
+    calling thread queues on. `graph_counts` counts the batches
+    that replayed, captured or ran eagerly (the mesh, "random" noise, the
+    CPU); `graph_keys` the keys held.
+
     While a torch.profiler profile is active the pipeline records spans
     (`tracing.py`): `prepare_pair` (children `decode`, `host_prepare`),
-    `run_batch` (children `upload`, `ingest`, `assemble`, `generator`;
-    under a mesh on the shards' threads), and in `run_stream`
-    `prep_wait`, `fetch` and `fetch_wait`; every span of one batch,
-    its prep on the pool's threads included, carries its batch id.
+    `run_batch` (attribute `graph`: "replay", "capture" or "eager";
+    children `upload`, then `replay` on a replayed batch, else `ingest`,
+    `assemble`, `generator`; under a mesh on the shards' threads), and in
+    `run_stream` `prep_wait`, `fetch` and `fetch_wait`; every span of one
+    batch, its prep on the pool's threads included, carries its batch id.
     """
 
     def __init__(self, model, mode="upper", noise_mode="const",
@@ -273,6 +319,17 @@ class TryonPipeline:
                                            list(self._pools.values()))
         self._noise = NoiseSeeds(seed, self.device)
         self.last_tiled = self.last_cut_windowed = None
+        self._graphed = (self.device.type == "cuda" and self.mesh is None
+                         and noise_mode != "random")
+        self._graphs = {}
+        self._side = self._pool = self._done = None
+        self._graph_lock = threading.Lock()
+        self.graph_counts = {"replay": 0, "capture": 0, "eager": 0}
+
+    @property
+    def graph_keys(self):
+        """The batch keys whose device work is held as a CUDA graph."""
+        return len(self._graphs)
 
     def close(self):
         """End the mesh's host threads (nothing without a mesh)."""
@@ -324,17 +381,8 @@ class TryonPipeline:
         pinned-memory cache keeps the block until its copy is done)."""
         device = self.device if device is None else device
         pin = device.type == "cuda"
-        batch = {}
-        for k in host_items[0]:
-            if k in ("tiles_fit", "cut_fits"):
-                continue
-            arrs = [np.asarray(it[k]) for it in host_items]
-            dtype = torch.from_numpy(np.empty(0, arrs[0].dtype)).dtype
-            host = torch.empty((len(arrs),) + arrs[0].shape, dtype=dtype,
-                               pin_memory=pin)
-            np.stack(arrs, out=host.numpy())
-            batch[k] = host.to(device, non_blocking=pin)
-        return batch
+        return {k: t.to(device, non_blocking=pin)
+                for k, t in _stage(host_items, pin).items()}
 
     def _forward(self, model, device, host_items, tiled, cut_windowed,
                  generator, parent=None):
@@ -345,6 +393,13 @@ class TryonPipeline:
                                         "device": str(device)}
         with tracing.span("upload", **at):
             batch = self._upload(host_items, device)
+        return self._device_work(model, batch, tiled, cut_windowed,
+                                 generator, at)
+
+    def _device_work(self, model, batch, tiled, cut_windowed, generator,
+                     at=None):
+        """ingest -> assemble -> generator on an uploaded batch."""
+        at = at or {}
         with tracing.span("ingest", **at):
             host = ingest_device(batch)
         with tracing.span("assemble", **at):
@@ -411,13 +466,87 @@ class TryonPipeline:
         with tracing.batch(), tracing.span(
                 "run_batch", size=len(host_items), tiled=tiled,
                 cut_windowed=cut_windowed) as span:
+            how = "eager"
             if self.mesh is not None:
-                return self._run_shards(host_items, tiled, cut_windowed,
+                outs = self._run_shards(host_items, tiled, cut_windowed,
                                         span)
-            generator = (self._noise.next() if self.noise_mode == "random"
-                         else None)
-            return [self._forward(self.model, self.device, host_items, tiled,
-                                  cut_windowed, generator)]
+            elif self._graphed:
+                with torch.cuda.device(self.device):
+                    out, how = self._run_graphed(host_items, tiled,
+                                                 cut_windowed)
+                outs = [out]
+            else:
+                generator = (self._noise.next()
+                             if self.noise_mode == "random" else None)
+                outs = [self._forward(self.model, self.device, host_items,
+                                      tiled, cut_windowed, generator)]
+            with self._graph_lock:
+                self.graph_counts[how] += 1
+            if span is not None:
+                span.attrs["graph"] = how
+            return outs
+
+    def _run_graphed(self, host_items, tiled, cut_windowed):
+        """`_replay_or_capture` for one thread at a time, its device work
+        queued after the previous graphed batch's."""
+        with self._graph_lock:
+            here = torch.cuda.current_stream(self.device)
+            if self._done is None:
+                self._done = torch.cuda.Event()
+            here.wait_event(self._done)
+            out, how = self._replay_or_capture(host_items, tiled,
+                                               cut_windowed)
+            self._done.record(here)
+        return out, how
+
+    def _replay_or_capture(self, host_items, tiled, cut_windowed):
+        """(the batch's output, "replay" or "capture"): the replay of its
+        key's graph, into a tensor of the caller's own; or, for a key not
+        seen before, the batch run eagerly and its work captured."""
+        with tracing.span("upload"):
+            staged = _stage(host_items, pin=True)
+            key = (tiled, cut_windowed and self.warp_impl != "gather",
+                   self.mode, self.warp_impl,
+                   tuple((k, tuple(t.shape), t.dtype)
+                         for k, t in staged.items()))
+            graph = self._graphs.get(key)
+            if graph is None:
+                batch = {k: t.to(self.device, non_blocking=True)
+                         for k, t in staged.items()}
+            else:
+                for k, t in staged.items():
+                    graph.inputs[k].copy_(t, non_blocking=True)
+        if graph is None:
+            return self._capture(key, batch, tiled, cut_windowed), "capture"
+        with tracing.span("replay"):
+            graph.graph.replay()
+            out = graph.output.clone()
+        return out, "replay"
+
+    def _capture(self, key, batch, tiled, cut_windowed):
+        """Run the batch eagerly on a side stream (the warm-up PyTorch asks
+        for before a capture), then capture the same work on it into the
+        pipeline's memory pool as `key`'s graph, reading `batch`'s tensors
+        from then on. Returns the eager output."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        side, here = self._side, torch.cuda.current_stream(self.device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            out = self._device_work(self.model, batch, tiled, cut_windowed,
+                                    None)
+        here.wait_stream(side)
+        out.record_stream(here)     # the caller frees it after its reads
+        graph = torch.cuda.CUDAGraph()
+        # "thread_local": CUDA calls of a server's other threads do not
+        # void the capture
+        with torch.cuda.graph(graph, pool=self._pool, stream=side,
+                              capture_error_mode="thread_local"):
+            static = self._device_work(self.model, batch, tiled,
+                                       cut_windowed, None)
+        self._graphs[key] = _Graph(graph, batch, static)
+        return out
 
     @torch.inference_mode()
     def run_batch(self, host_items):

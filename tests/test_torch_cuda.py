@@ -587,3 +587,201 @@ def test_run_stream_on_the_card(cuda, tmp_path):
             items += [items[-1]] * (2 - len(items))
             want = ref.run_batch(items).float().cpu().numpy()[:len(chunk)]
             assert out.dtype == np.float32 and np.array_equal(out, want)
+
+
+def _graph_items(pipe, batch, tiled):
+    """`batch` synthetic items whose paste tiles all fit (`tiled`), or of
+    which at least the first does not."""
+    from pasta_tpu_torch.data.synthetic import make_garment, make_person
+
+    def item(s, jitter):
+        return pipe.prepare(make_person(s, jitter=jitter),
+                            make_garment(1000 + s, jitter=jitter))
+
+    if tiled:
+        items = [item(s, 3.0) for s in range(batch)]
+        assert all(bool(it["tiles_fit"]) for it in items)
+        return items
+    seeds = iter(range(100, 200))
+    first = next(it for it in map(lambda s: item(s, 40.0), seeds)
+                 if not bool(it["tiles_fit"]))
+    return [first] + [item(next(seeds), 40.0) for _ in range(batch - 1)]
+
+
+def _k1_kernels(prof):
+    """K1's kernels in a finished torch.profiler trace."""
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               and ("conv3x3_f32_kernel" in e.name
+                    or "conv3x3_bf16_kernel" in e.name)
+               for e in prof.events())
+
+
+@pytest.fixture(scope="module")
+def fashion_g():
+    """The fashion generator at its published widths, fp32 and with its
+    top three resolutions in bf16, built once for the graph tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pasta_tpu_torch.models import Generator
+
+    pin_fp32_numerics()
+    return {res: Generator(seed=0, num_bf16_res=res).eval().to("cuda")
+            for res in (0, 3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16_res", [0, 3])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_run_batch_syncs_nothing_after_warm_up(cuda, fashion_g, batch,
+                                               bf16_res):
+    """A warmed-up run_batch (a replay) makes no call that waits for the
+    card: torch.cuda.set_sync_debug_mode("error") raises nothing."""
+    from pasta_tpu_torch.serving import TryonPipeline
+
+    pipe = TryonPipeline(fashion_g[bf16_res], mode="upper")
+    items = _graph_items(pipe, batch, tiled=True)
+    pipe.run_batch(items)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pipe.run_batch(items)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert pipe.graph_counts == {"replay": 1, "capture": 1, "eager": 0}
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16_res", [0, 3])
+@pytest.mark.parametrize("tiled", [True, False])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_graph_replay_equals_eager(cuda, fashion_g, batch, tiled, bf16_res):
+    """The capture batch's output (its eager run) and a replay's are the
+    eager pipeline's bit for bit (a one-card mesh runs eagerly), on the
+    tiled and the full path, in fp32 and with the top three resolutions
+    in bf16. A CUDA trace holds K1's kernels 26 times a batch, the
+    replay's among them; K1's counters see the eager run's 26 alone (the
+    capture runs nothing, the replay is the graph's launch)."""
+    from pasta_tpu_torch.serving import TryonPipeline
+
+    model = fashion_g[bf16_res]
+    pipe = TryonPipeline(model, mode="upper")
+    items = _graph_items(pipe, batch, tiled)
+    with TryonPipeline(model, mode="upper", mesh=[cuda]) as eager:
+        want = eager.run_batch(items)
+    assert eager.graph_counts["eager"] == 1 and eager.graph_keys == 0
+    before = k1.conv3x3_valid.launches
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        captured = pipe.run_batch(items)
+        replayed = pipe.run_batch(items)
+        torch.cuda.synchronize()
+    assert pipe.last_tiled == tiled
+    assert pipe.graph_counts == {"replay": 1, "capture": 1, "eager": 0}
+    assert k1.conv3x3_valid.launches - before == 26
+    assert _k1_kernels(prof) == 2 * 26
+    assert torch.equal(captured, want) and torch.equal(replayed, want)
+
+
+@pytest.mark.cuda
+def test_graph_counts_keys_and_kept_outputs(cuda):
+    """One capture a batch key, replays after it; an image a caller holds
+    is not changed by later batches of its key; narrow 512 px generator,
+    fp32, batch keys 2 and 1."""
+    from pasta_tpu_torch.models import Generator
+    from pasta_tpu_torch.serving import TryonPipeline
+
+    model = Generator(seed=0, img_resolution=512, channel_base=2048,
+                      channel_max=128).eval().to(cuda)
+    pipe = TryonPipeline(model, mode="upper")
+    items = _graph_items(pipe, 4, tiled=True)
+    a, b = items[:2], items[2:]
+    first = pipe.run_batch(a)
+    held = pipe.run_batch(a)
+    copy = held.clone()
+    other = pipe.run_batch(b)
+    pipe.run_batch(a[:1])
+    pipe.run_batch(b[:1])
+    torch.cuda.synchronize()
+    assert pipe.graph_counts == {"replay": 3, "capture": 2, "eager": 0}
+    assert pipe.graph_keys == 2
+    assert torch.equal(held, copy) and torch.equal(first, held)
+    assert not torch.equal(held, other)
+
+
+@pytest.mark.cuda
+def test_mesh_and_random_noise_stay_eager(cuda):
+    """A mesh and noise_mode="random" run every batch eagerly, and their
+    outputs agree with each other as before (one-card mesh against no
+    mesh, the same seed); narrow 512 px generator, fp32, noise strengths
+    0.05."""
+    from pasta_tpu_torch.models import Generator
+    from pasta_tpu_torch.serving import TryonPipeline
+
+    model = Generator(seed=0, img_resolution=512, channel_base=2048,
+                      channel_max=128).eval().to(cuda)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("noise_strength"):
+                p.fill_(0.05)
+    random = TryonPipeline(model, mode="upper", noise_mode="random", seed=3)
+    items = _graph_items(random, 2, tiled=True)
+    outs = [random.run_batch(items) for _ in range(2)]
+    with TryonPipeline(model, mode="upper", noise_mode="random", seed=3,
+                       mesh=[cuda]) as split:
+        split_outs = [split.run_batch(items) for _ in range(2)]
+    for pipe in (random, split):
+        assert pipe.graph_counts == {"replay": 0, "capture": 0, "eager": 2}
+        assert pipe.graph_keys == 0
+    assert not torch.equal(outs[0], outs[1])
+    assert all(torch.equal(o, s) for o, s in zip(outs, split_outs))
+
+
+@pytest.mark.cuda
+def test_run_batch_from_two_threads(cuda):
+    """Two threads that call run_batch at once on batches of one key each
+    get their own batch's image every time (one copies into the graph's
+    inputs, replays and copies out before the other may), the first of
+    them on a stream of its own; narrow 512 px generator, fp32, batch 2."""
+    import sys
+    import threading
+
+    from pasta_tpu_torch.models import Generator
+    from pasta_tpu_torch.serving import TryonPipeline
+
+    model = Generator(seed=0, img_resolution=512, channel_base=2048,
+                      channel_max=128).eval().to(cuda)
+    pipe = TryonPipeline(model, mode="upper")
+    items = _graph_items(pipe, 4, tiled=True)
+    batches = [items[:2], items[2:]]
+    want = [pipe.run_batch(b) for b in batches]
+    assert not torch.equal(want[0], want[1])
+    got, start = [[], []], threading.Barrier(2)
+
+    def serve(i):
+        stream = torch.cuda.Stream() if i == 0 else None
+        with torch.cuda.stream(stream):
+            start.wait(timeout=60)
+            for _ in range(8):
+                got[i].append(pipe.run_batch(batches[i]))
+            torch.cuda.current_stream().synchronize()
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=serve, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(switch)
+    torch.cuda.synchronize()
+    assert not any(t.is_alive() for t in threads)
+    assert pipe.graph_counts == {"replay": 17, "capture": 1, "eager": 0}
+    for i in range(2):
+        assert len(got[i]) == 8
+        assert all(torch.equal(o, want[i]) for o in got[i])

@@ -3,7 +3,8 @@ the CPU: nothing recorded, no range opened and no clock read without a
 profiler; under a CPU `torch.profiler` the tree of spans of
 `prepare_pair`, `run_batch` and `run_stream` with their parents and
 shared batch ids (prep spans on the pool's threads, shard spans under
-`mesh=["cpu", "cpu"]` on the mesh's thread), the `pasta.*` ranges among
+`mesh=["cpu", "cpu"]` on the mesh's thread), the `graph` attribute of
+`run_batch` ("eager" on the CPU), the `pasta.*` ranges among
 the profiler's events, outputs bit-equal with tracing on and off, and the
 cap's `dropped` count.
 
@@ -201,6 +202,25 @@ def test_mesh_shard_spans(model, items):
     assert all(s.attrs["device"] == "cpu"
                and s.attrs["batch"] == rb.attrs["batch"] for s in kids)
     assert len(spans) == 9
+
+
+def test_run_batch_runs_eagerly_on_the_cpu(model, items):
+    """On the CPU no batch is captured into a CUDA graph: the pipeline
+    counts every batch eager, holds no graph, and each run_batch span
+    carries graph="eager", with and without a mesh."""
+    pipe = serving.TryonPipeline(model, mode="upper")
+    with _cpu_profile():
+        pipe.run_batch(items)
+        pipe.run_batch(items[:1])
+    assert pipe.graph_counts == {"replay": 0, "capture": 0, "eager": 2}
+    assert pipe.graph_keys == 0
+    with serving.TryonPipeline(model, mode="upper", mesh=["cpu", "cpu"]) \
+            as split:
+        with _cpu_profile():
+            split.run_batch(items)
+    assert split.graph_counts == {"replay": 0, "capture": 0, "eager": 1}
+    batches = _by_name(tracing.snapshot())["run_batch"]
+    assert [b.attrs["graph"] for b in batches] == ["eager"] * 3
 
 
 def test_ranges_on_the_profiler_timeline(model, items):
