@@ -34,7 +34,8 @@ from .trace import MARK_KERNEL, union
 
 ANCHOR = "run_batch"
 MAX_SPREAD_US = 200.0
-DISPATCH = ("upload", "ingest", "assemble", "generator", "run_batch")
+DISPATCH = ("upload", "replay", "ingest", "assemble", "generator",
+            "run_batch")
 
 
 def spans(run):

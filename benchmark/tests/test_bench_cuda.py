@@ -1,9 +1,12 @@
 """On the card (marker `cuda`; skips without one): the control of each
-try-on cell's comparison, and a short sound run with its trace.
+cell's comparison, a fault planted in the training cell's, and a short
+sound run with its trace.
 
 The control is the plain reference computed with TF32 on, put in the
 program's place, at the cell's own size (the full fashion generator, the
-cell's batch and sample) on three seeds: it has to come out not correct.
+cell's batch and sample; the training cell's three first steps) on three
+seeds: it has to come out not correct. So has the reference put in the
+training step's place on half of each batch.
 
     python3 -m pytest -m cuda benchmark/tests/test_bench_cuda.py
 """
@@ -47,6 +50,16 @@ def test_control_is_not_correct(card, cell, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seed", [2 ** 31 + 111, 2 ** 31 + 112, 2 ** 31 + 113])
+def test_half_the_batch_left_out_is_not_correct(card, seed):
+    _, run = _run("train512_b4", seed, 3.0, control="half_batch")
+    correct, checks = run.numbers
+    print("train512_b4 half_batch", seed,
+          {k: v["value"] for k, v in checks.items()})
+    assert not correct
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_short_traced_run_is_correct_and_reads_its_metrics(card, cell):
     ctx, run = _run(cell, 2 ** 31 + 7, 3.0, trace=True)
@@ -57,5 +70,5 @@ def test_a_short_traced_run_is_correct_and_reads_its_metrics(card, cell):
     assert set(values) == {m["name"] for m in layers}
     assert 0 < run.trace.busy_s <= run.trace.window_s
     for name, v in values.items():
-        if name.endswith("_roofline.serve") or name.startswith("mfu."):
+        if "_roofline." in name or name.startswith("mfu."):
             assert 0 < v["value"] <= 100, name

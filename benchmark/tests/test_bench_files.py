@@ -11,6 +11,12 @@ import pytest
 from benchmark import harness
 
 BENCH = harness.declared()
+# the numbers each driver's check compares
+CHECKED = {"stream": {"share_off", "mean_gap"},
+           "single": {"share_off", "mean_gap"},
+           "train": {"first_loss_gap.g", "first_loss_gap.r1", "rows_off"}
+           | {f"grad_median.{m}" for m in ("g", "d", "dp")}
+           | {f"change_median.{m}" for m in ("g", "d", "dp", "g_ema")}}
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 HERE = harness.HERE
@@ -46,7 +52,8 @@ def test_cell_files_load(cell):
     assert ctx.workload["why"] == entry["why"]
     assert os.path.exists(os.path.join(HERE, "drivers",
                                        f"{ctx.workload['driver']}.py"))
-    assert set(ctx.workload["check"]["limits"]) == {"share_off", "mean_gap"}
+    assert set(ctx.workload["check"]["limits"]) == \
+        CHECKED[ctx.workload["driver"]]
     e2e, layers = harness.metrics_of(cell)
     assert "setup_s" in [m["name"] for m in e2e] and len(e2e) >= 2
     assert layers

@@ -1,4 +1,4 @@
-"""The readers of the port's own spans (`lib/program.py` and the six
+"""The readers of the port's own spans (`lib/program.py` and the five
 metrics on it) on hand-built timelines: the anchor onto the trace's
 clock, the idle arithmetic of both `dispatch_idle_ms` readers and their
 split note, every reader's None where the port has no `tracing` module,
@@ -13,8 +13,7 @@ import torch
 from benchmark import harness
 from benchmark.lib import program, trace
 
-NEW = ["single.decode_ms", "single.generator_queue_ms",
-       "single.dispatch_idle_ms", "serve.prep_wait_ms",
+NEW = ["single.decode_ms", "single.dispatch_idle_ms", "serve.prep_wait_ms",
        "serve.fetch_wait_ms", "serve.dispatch_idle_ms"]
 OFFSET_US = 5_000_000.0      # the port's clock (us) minus the trace's
 MAIN, POOL = 1, 2
@@ -119,8 +118,8 @@ def test_single_dispatch_idle_and_split(recorded):
     assert harness.reader("single.dispatch_idle_ms")(run) == pytest.approx(
         0.146, abs=1e-6)
     note, = run.notes
-    assert ("inside run_batch: upload 0.015; ingest 0.020; assemble 0.010;"
-            " generator 0.095; run_batch 0.006") in note
+    assert ("inside run_batch: upload 0.015; replay 0.000; ingest 0.020; "
+            "assemble 0.010; generator 0.095; run_batch 0.006") in note
     assert "over 2 batches" in note
     # outside run_batch, a request: 1-12, 98-102 and 398-1000 (or 1001-1012,
     # 1098-1102, 1398-2000) with no span open (617 us), prepare_pair
@@ -132,8 +131,27 @@ def test_single_dispatch_idle_and_split(recorded):
     assert ("host ms a batch in the window: prepare_pair 0.086; decode "
             "0.050;") in note
     assert harness.reader("single.decode_ms")(run) == pytest.approx(0.05)
-    assert harness.reader("single.generator_queue_ms")(run) == \
-        pytest.approx(0.195)
+
+
+def test_a_replays_idle_is_inside_run_batch(recorded):
+    """A replayed batch's run_batch holds `upload` and `replay`: the idle
+    in `replay` is the dispatch's, not the window's outside run_batch."""
+    tl, kernels = Timeline(), [_mark(0.0)]
+    tl.labels.append(("run_batch", 100.0, 400.0))
+    tl.span("run_batch", 100.0, 400.0, graph="replay")
+    tl.span("upload", 105.0, 120.0)
+    tl.span("replay", 120.0, 395.0)
+    # busy 130-300: idle 100-130 (run_batch 5, upload 15, replay 10) and
+    # 300-400 (replay 95, run_batch 5); outside, 1-100 and 400-1000
+    kernels += [("k", 130.0, 300.0), _mark(1000.0)]
+    recorded(tl)
+    run = tl.run(kernels)
+    assert harness.reader("single.dispatch_idle_ms")(run) == pytest.approx(
+        0.130)
+    note, = run.notes
+    assert ("inside run_batch: upload 0.015; replay 0.105; ingest 0.000; "
+            "assemble 0.000; generator 0.000; run_batch 0.010") in note
+    assert "outside run_batch: none 0.699 |" in note     # the marks: 1 us
 
 
 def _stream_timeline():
@@ -172,8 +190,8 @@ def test_stream_dispatch_idle_and_split(recorded):
         0.020)
     note, = run.notes
     assert "over 2 batches" in note
-    assert ("inside run_batch: upload 0.015; ingest 0.000; assemble 0.000;"
-            " generator 0.005; run_batch 0.000") in note
+    assert ("inside run_batch: upload 0.015; replay 0.000; ingest 0.000; "
+            "assemble 0.000; generator 0.005; run_batch 0.000") in note
     assert "outside run_batch: 0 |" in note
     assert "fetch 0.010; fetch_wait 0.680" in note
     assert harness.reader("serve.prep_wait_ms")(run) == pytest.approx(0.020)
