@@ -119,11 +119,11 @@ def timed_reductions():
     original = tdist.reduce_phase
     record = []
 
-    def timed(grads, metrics):
+    def timed(grads, metrics, phase=None):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        out = original(grads, metrics)
+        out = original(grads, metrics, phase)
         b.record()
         record.append((sum(g.numel() for g in grads), a, b))
         return out

@@ -20,12 +20,25 @@ R1's double backward goes through them. They use only `all_reduce` and
 `all_gather` (gloo has no `reduce_scatter`). With no process group each
 returns its input and launches nothing; in a group of one rank each runs
 and gives its input back, bit for bit.
+
+Tracing (`tracing.py`: only while a profiler is active, one flag check
+otherwise): each collective call opens a span, "allreduce" (`phase`,
+`bytes`) around `reduce_phase`'s all-reduce, "all_reduce_sum" around every
+summing all-reduce (`all_reduce_sum`, `all_reduce_mean` and the adjoint of
+the gather) and "all_gather_batch" around the gather, and `counts()` adds
+the call and its bytes under the span's name, as host integers.
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 import torch.distributed as dist
+
+from .. import tracing
+
+_counts = collections.defaultdict(lambda: [0, 0])
 
 
 def grouped():
@@ -43,9 +56,33 @@ def rank():
     return dist.get_rank() if grouped() else 0
 
 
+def counts():
+    """{kind: {"calls", "bytes"}} of the collectives traced since the last
+    `reset_counts()`: the spans' names, and the bytes each call handed
+    over (a gather: this rank's)."""
+    return {k: {"calls": c, "bytes": b} for k, (c, b) in _counts.items()}
+
+
+def reset_counts():
+    """Forget the counted collectives."""
+    _counts.clear()
+
+
+def _traced(kind, x, **attrs):
+    """The span of one collective call on `x`, counted while traced."""
+    s = tracing.span(kind, **attrs)
+    if isinstance(s, tracing.Span):
+        s.attrs["bytes"] = x.numel() * x.element_size()
+        c = _counts[kind]
+        c[0] += 1
+        c[1] += s.attrs["bytes"]
+    return s
+
+
 def _summed(x):
     y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y)
+    with _traced("all_reduce_sum", y):
+        dist.all_reduce(y)
     return y
 
 
@@ -70,7 +107,8 @@ class _AllGatherBatch(torch.autograd.Function):
     def forward(ctx, x):
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, x)
+        with _traced("all_gather_batch", x):
+            dist.all_gather(parts, x)
         return torch.cat(parts)
 
     @staticmethod
@@ -96,18 +134,20 @@ def all_gather_batch(x):
     return _AllGatherBatch.apply(x) if grouped() else x
 
 
-def reduce_phase(grads, metrics):
+def reduce_phase(grads, metrics, phase=None):
     """(grads, metrics) -> their means over ranks, through ONE all-reduce
     of a flat float32 buffer: the list of gradients, and every tensor
     among the metrics (numbers stay as they are). Each rank gets the same
-    bits back. Without a process group: the same objects."""
+    bits back. Without a process group: the same objects. `phase` names
+    the step's phase on the all-reduce's span."""
     if not grouped():
         return grads, metrics
     n = world_size()
     keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
     flat = torch.cat([g.reshape(-1).float() for g in grads]
                      + [metrics[k].reshape(1).float() for k in keys])
-    dist.all_reduce(flat)
+    with _traced("allreduce", flat, phase=phase):
+        dist.all_reduce(flat)
     flat.div_(n)
     out, at = [], 0
     for g in grads:

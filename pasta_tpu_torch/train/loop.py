@@ -36,6 +36,10 @@ end of the run.
 With ranks, the chief alone builds and runs the evaluator; every rank's
 sampler skips the held-out items.
 
+Spans (`tracing.py`, only under a profiler): `train_step` around each
+step (`step`, `r1`, `rank`) and `loader_wait` around each take of the
+next batch from the loader.
+
 The cross-pair try-on grid (`tryon_grid_k`, `save_cross_pair_grid`):
 G-EMA's try-on of the first k persons in each other's garments, written
 beside each snapshot. With ranks it is skipped, as the JAX loop skips it
@@ -55,6 +59,7 @@ import numpy as np
 import PIL.Image
 import torch
 
+from .. import tracing
 from ..data.trainsets import (TryonTrainDataset, assemble_train_batch,
                               assemble_train_batch_lean,
                               batch_to_lean_inputs, batch_to_raw_inputs,
@@ -463,7 +468,10 @@ def _training_loop_impl(
 
     lean_loader = getattr(dataset, "loader_impl", "host") == "device"
     try:
-        loaded = next(batches) if start_step < total_steps else None
+        loaded = None
+        if start_step < total_steps:
+            with tracing.span("loader_wait"):
+                loaded = next(batches)
         for step in range(start_step, total_steps):
             with torch.no_grad():
                 if lean_loader:
@@ -480,11 +488,14 @@ def _training_loop_impl(
             # step, during which the card has work, and not with the
             # upload and assembly above, during which it has none.
             if step + 1 < total_steps:
-                loaded = next(batches)
+                with tracing.span("loader_wait"):
+                    loaded = next(batches)
             do_r1_d, do_pl = lazy_phases(cfg, step)
-            state, metrics = train_step(state, batch, generator,
-                                        do_r1_d=do_r1_d, do_r1_dp=do_r1_d,
-                                        do_pl=do_pl)
+            with tracing.span("train_step", step=step, r1=do_r1_d,
+                              rank=rank):
+                state, metrics = train_step(state, batch, generator,
+                                            do_r1_d=do_r1_d,
+                                            do_r1_dp=do_r1_d, do_pl=do_pl)
             step_metrics.append(metrics)
             if world > 1 and (do_r1_d, do_pl) not in variants:
                 # the first step of a variant builds what it needs (the

@@ -301,12 +301,12 @@ def make_train_step(cfg, vgg=None):
     def cores(state):
         return build_loss_cores(cfg, state.d, state.dp, vgg)
 
-    def update(opt, module, loss_fn, batch, sanitize=True,
+    def update(phase, opt, module, loss_fn, batch, sanitize=True,
                accum=cfg.grad_accum):
         """One phase's backward and Adam step, its losses, metrics and
         gradients meaned over `accum` microbatches; each microbatch's graph
         is freed before the next one's forward. Returns the metrics,
-        detached."""
+        detached. `phase` names the phase to its all-reduce's span."""
         params = trained_params(opt, module)
         grads = metrics = None
         for mb in _microbatches(batch, accum):
@@ -322,7 +322,7 @@ def make_train_step(cfg, vgg=None):
             grads = [g / accum for g in grads]
             metrics = {k: v / accum for k, v in metrics.items()}
         # the means over ranks, then sanitized, as the JAX step's psum
-        grads, metrics = tdist.reduce_phase(grads, metrics)
+        grads, metrics = tdist.reduce_phase(grads, metrics, phase)
         if sanitize and cfg.sanitize_grads:
             grads = _sanitize(grads)
         apply_grads(opt, module, grads)
@@ -336,8 +336,9 @@ def make_train_step(cfg, vgg=None):
         a = cfg.grad_accum
         w_avg = state.g.mapping.w_avg
         if a == 1:
-            metrics = update(state.g_opt, state.g, lambda mb: _loss_g(
-                c, state, mb, generator, update_w_avg=True, keep=keep), batch)
+            metrics = update("Gmain", state.g_opt, state.g, lambda mb: _loss_g(
+                c, state, mb, generator, update_w_avg=True, keep=keep),
+                batch)
         else:
             start, moved = w_avg.clone(), []
 
@@ -347,7 +348,7 @@ def make_train_step(cfg, vgg=None):
                 moved.append(w_avg.clone())
                 return out
 
-            metrics = update(state.g_opt, state.g, loss_fn, batch)
+            metrics = update("Gmain", state.g_opt, state.g, loss_fn, batch)
             w_avg.copy_(torch.stack(moved).sum(0) / a)
         if tdist.grouped():
             with torch.no_grad():
@@ -368,8 +369,8 @@ def make_train_step(cfg, vgg=None):
                                                    pl_noise)
                 return loss, m
 
-            metrics.update(update(state.g_opt, state.g, pl_loss, batch,
-                                  accum=1))
+            metrics.update(update("Gpl", state.g_opt, state.g, pl_loss,
+                                  batch, accum=1))
             state.pl_mean = new["pl_mean"].detach()
         elif cfg.pl_weight != 0:
             metrics.update(pl_penalty=0.0)
@@ -384,13 +385,13 @@ def make_train_step(cfg, vgg=None):
                 batch_d = dict(batch, **_fakes(*_run_g(
                     state.g, batch, generator, update_w_avg=False)))
 
-        d_metrics = update(state.d_opt, state.d,
+        d_metrics = update("Dmain", state.d_opt, state.d,
                            lambda mb: _loss_d(c, state, mb, generator),
                            batch_d)
         metrics.update(d_metrics)
         # the JAX step does not sanitize the parsing D's main gradients
         for _ in range(2 if cfg.double_d_parsing else 1):
-            dp_metrics = update(state.dp_opt, state.dp,
+            dp_metrics = update("DPmain", state.dp_opt, state.dp,
                                 lambda mb: _loss_dp(c, state, mb, generator),
                                 batch_d, sanitize=False)
         metrics.update(dp_metrics)
@@ -409,12 +410,12 @@ def make_train_step(cfg, vgg=None):
         metrics.update(r1_penalty=0.0, dp_r1_penalty=0.0)
         if do_r1_d:
             metrics.update(update(
-                state.d_opt, state.d, lambda b: _loss_d_r1(
+                "Dr1", state.d_opt, state.d, lambda b: _loss_d_r1(
                     cores(state), state, b, generator, ada_p_pre, gen_c),
                 batch, accum=1))
         if do_r1_dp:
             metrics.update(update(
-                state.dp_opt, state.dp, lambda b: _loss_dp_r1(
+                "DPr1", state.dp_opt, state.dp, lambda b: _loss_dp_r1(
                     cores(state), state, b, gen_c), batch, accum=1))
         return state, metrics
 
