@@ -15,16 +15,29 @@ try-on grid and trace, and a serving batch split over devices
 synthetic inputs, in phases:
 
   1. device      -- fails without CUDA; prints the card's name, power limit
-  2. build       -- compiles csrc/conv3x3.cu (K1) and csrc/shift.cu (K2, K3)
-                    from the sources, in parallel; registers and spills
+  2. build       -- compiles csrc/conv3x3.cu (K1), csrc/shift.cu (K2, K3)
+                    and csrc/upfirdn2d.cu (the FIR resampling kernel) from
+                    the sources, in parallel; registers and spills
                     (none allowed in K1's kernels), the fp32 kernel's blocks
                     per SM, the bf16 kernel's tile waste at four widths
   3. kernel      -- K1 against its plain version at the serving shapes
                     (bf16) and, in bf16 and fp32, at two ragged shapes, with
                     the error bound and CUDA-event times
-  4. main        -- run_batch on tiled and full-path batches; K1's kernels
-                    in a CUDA trace of those batches (CUDA graph replays)
-                    must number its in-scope convs per batch
+ 3b. kernel-fir  -- the FIR resampling kernel: one eager serving forward at
+                    batch 8 (fp32, published widths) launches it 28 times
+                    and takes the plain route never; each of its calls, and
+                    D's filter pass and skip down 2 at batch 4 (top three
+                    resolutions, bf16 and fp32) and their input gradients,
+                    against upfirdn2d_plain forward, input gradient and
+                    double backward (fp32 1e-5, bf16 2^-7 of the scale);
+                    each call's time beside its byte bound, the plain
+                    version's and cuDNN's grouped conv alone
+  4. main        -- run_batch on tiled and full-path batches; K1's and the
+                    FIR kernel's kernels in a CUDA trace of those batches
+                    (CUDA graph replays) must number their calls per batch
+                    (26 and 28), and the FIR counters from 0 before the
+                    first batch 28 launches for each eagerly run batch
+                    key, none plain
   5. check       -- a small fp32 serving run on the card against the CPU
   6. kernel-train -- K2 and K3 (from the positions q) against their plain
                     versions at the training shapes (bf16) and at ragged
@@ -42,7 +55,10 @@ synthetic inputs, in phases:
   7. train       -- init_state on the fashion preset at batch 4, a warm-up
                     step, 3 timed regular steps and one R1 step; finite
                     metrics, the ADA controller's move, parameters changed,
-                    K1 forward / K1 dX / K2 / K3 launch counts; s/step,
+                    K1 forward / K1 dX / K2 / K3 launch counts, the FIR
+                    kernel's from 0 before the warm-up step (each regular
+                    step the warm-up's, more gradient launches in the R1
+                    step, R1's double backward; none plain); s/step,
                     sec/kimg, peak memory
   8. train-check -- one fp32 step's per-phase losses and gradients at the
                     narrow 64px config (no noise), card against CPU: at
@@ -184,6 +200,7 @@ import concurrent.futures
 import contextlib
 import copy
 import functools
+import importlib
 import json
 import os
 import re
@@ -231,6 +248,23 @@ TRAIN_K2, TRAIN_K3 = 4, 2
 R1_K1_FWD, R1_K1_DX, R1_K2, R1_K3 = 4, 12, 4, 2
 TRAIN_BATCH = 4
 N_TRAIN_TIMED = 3
+
+# The FIR resampling kernel's calls in one serving forward (all in its
+# scope): the synthesis blocks' conv0 and torgb's image upsamples, up 2, 7
+# each; the filter pass ahead of every stride-2 conv of the encoders and
+# the SPADE encoder, 13; the SPADE encoder's 1x1 skip, down 2, 1. And D's
+# resampling at the training batch and its top three resolutions: the
+# filter pass ahead of conv1's stride-2 conv and the skip's down 2.
+FIR_PER_BATCH = 28
+FIR_KERNEL = "upfirdn2d_kernel"
+FIR_D_SHAPES = ((TRAIN_BATCH, 512, 512, 64), (TRAIN_BATCH, 256, 256, 128),
+                (TRAIN_BATCH, 128, 128, 256))
+FIR_D_CALLS = ((1, (2, 2, 2, 2)), (2, (1, 1, 1, 1)))     # (down, padding)
+# fp32: sums of at most 16 products in another order; bf16: the kernel's
+# one rounding of an fp32 sum against the plain version in fp32 on the
+# same rounded inputs and taps
+FIR_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+FIR_ITERS = 20
 
 # The training options (phase 10), each on the fashion preset at batch 4.
 # A: every option that changes the step's work but the shared fakes; B: the
@@ -312,12 +346,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
-def turns(plain, kernel, iters):
+def turns(plain, kernel, iters, ahead=False):
     """(kernel ms, plain ms) timed in turns plain-kernel-kernel-plain."""
-    p1 = cuda_ms(plain, iters)
-    k1 = cuda_ms(kernel, iters)
-    k2 = cuda_ms(kernel, iters)
-    p2 = cuda_ms(plain, iters)
+    p1 = cuda_ms(plain, iters, ahead)
+    k1 = cuda_ms(kernel, iters, ahead)
+    k2 = cuda_ms(kernel, iters, ahead)
+    p2 = cuda_ms(plain, iters, ahead)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -368,11 +402,12 @@ def _print_ptxas(tag, log):
                   f"{name} spills: {line.strip()}")
 
 
-def phase_build(k1, shift):
-    """Both sources compile at once, one nvcc each."""
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+def phase_build(k1, shift, fir):
+    """The sources compile at once, one nvcc each."""
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         jobs = {"K1 csrc/conv3x3.cu": pool.submit(k1.build),
-                "K2/K3 csrc/shift.cu": pool.submit(shift.build)}
+                "K2/K3 csrc/shift.cu": pool.submit(shift.build),
+                "FIR csrc/upfirdn2d.cu": pool.submit(fir.build)}
         for tag, job in jobs.items():
             _, seconds, log = job.result()
             print(f"[build] {tag} -> sm_90a in {seconds:.2f} s", flush=True)
@@ -461,6 +496,179 @@ def phase_kernel(k1, batch):
     return rows
 
 
+def _fir_counts(fir):
+    """The FIR kernel's (launches, gradient launches, plain calls)."""
+    u = fir.upfirdn2d
+    return u.launches, u.launches_bwd, u.launches_plain
+
+
+def _fir_reset(fir):
+    u = fir.upfirdn2d
+    u.launches = u.launches_bwd = u.launches_plain = 0
+
+
+def _fir_three_ways(fir, x0, f, p, g):
+    """The largest error, over the plain version's scale, of the kernel's
+    forward, input gradient and gradient of that gradient (the Function's,
+    as R1 runs it) against the plain version's in fp32 on the same rounded
+    inputs and taps; each held to FIR_TOL, and the kernel launched once
+    forward and twice for the gradients, never plain."""
+    dtype, dev = x0.dtype, x0.device
+    fr = None if f is None else f.to(dtype).float()
+    before = _fir_counts(fir)
+    x = x0.clone().requires_grad_(True)
+    y = fir._Upfirdn2d.apply(x, f, p, False)
+    dy0 = torch.randn(y.shape, generator=g, device=dev).to(dtype)
+    v0 = torch.randn(x0.shape, generator=g, device=dev).to(dtype)
+    dy = dy0.clone().requires_grad_(True)
+    (dx,) = torch.autograd.grad(y, x, dy, create_graph=True)
+    (ddy,) = torch.autograd.grad(dx, dy, v0)
+    counts = tuple(a - b for a, b in zip(_fir_counts(fir), before))
+    xr = x0.float().requires_grad_(True)
+    yr = fir._plain(xr, fr, p)
+    dyr = dy0.float().requires_grad_(True)
+    (dxr,) = torch.autograd.grad(yr, xr, dyr, create_graph=True)
+    (ddyr,) = torch.autograd.grad(dxr, dyr, v0.float())
+    errs = []
+    for what, got, want in (("forward", y, yr), ("dX", dx, dxr),
+                            ("ddY", ddy, ddyr)):
+        want = want.detach()
+        check(got.shape == want.shape and got.dtype == dtype
+              and got.is_contiguous(),
+              f"FIR {what} {list(x0.shape)} {p[:8]}: {got.dtype} "
+              f"{tuple(got.shape)}, plain {tuple(want.shape)}")
+        e = ((got.float() - want).abs().max() / want.abs().max()).item()
+        check(e <= FIR_TOL[dtype], f"FIR {what} {str(dtype)[6:]} "
+              f"{list(x0.shape)} {p[:8]}: error {e:.3g} of the scale > "
+              f"{FIR_TOL[dtype]:.3g}")
+        errs.append(e)
+    check(counts == (1, 2, 0), f"FIR {list(x0.shape)} {p[:8]}: launches, "
+          f"gradient launches, plain {counts} != (1, 2, 0)")
+    return max(errs)
+
+
+def _fir_library(x, f, p):
+    """cuDNN's depthwise conv of the plain version alone: its prepared
+    input (zero-inserted, padded, cropped, NCHW) and repeated taps made here,
+    outside the timing."""
+    F = torch.nn.functional
+    upx, upy, downx, downy, px0, px1, py0, py1, flip, gain = p
+    n, h, w, c = x.shape
+    xn = x.permute(0, 3, 1, 2)
+    if upx > 1 or upy > 1:
+        xn = F.pad(xn.reshape(n, c, h, 1, w, 1),
+                   [0, upx - 1, 0, 0, 0, upy - 1]).reshape(
+                       n, c, h * upy, w * upx)
+    xn = F.pad(xn, [max(px0, 0), max(px1, 0), max(py0, 0), max(py1, 0)])
+    xn = xn[:, :, max(-py0, 0):xn.shape[2] - max(-py1, 0),
+            max(-px0, 0):xn.shape[3] - max(-px1, 0)].contiguous()
+    taps = f if flip else f.flip([0, 1])
+    wk = (taps * gain).to(x.dtype)[None, None].repeat(c, 1, 1, 1)
+    return lambda: F.conv2d(xn, wk, stride=(downy, downx), groups=c)
+
+
+def _fir_row(fir, tag, x, f, p, calls, g):
+    """One FIR call checked three ways (`_fir_three_ways`) and timed: the
+    kernel and the plain version in turns, cuDNN's grouped conv alone, the
+    bound (input and output once over the device memory rate); times for
+    `calls` such calls."""
+    err = _fir_three_ways(fir, x, f, p, g)
+    with torch.no_grad():
+        out = fir._kernel(x, f, p)
+        t_k, t_plain = turns(lambda: fir._plain(x, f, p),
+                             lambda: fir._kernel(x, f, p), FIR_ITERS, True)
+        t_lib = cuda_ms(_fir_library(x, f, p), FIR_ITERS, True)
+    t_bound = ((x.numel() + out.numel()) * x.element_size()
+               / HBM_BYTES_PER_S * 1e3)
+    print(f"[kernel-fir] {tag} {str(x.dtype)[6:]} {list(x.shape)}->"
+          f"{list(out.shape)} up {p[:2]} down {p[2:4]} pad {p[4:8]}"
+          f"{' x' + str(calls) if calls > 1 else ''} | error {err:.3g} of "
+          f"the scale | kernel {t_k:.4f} ms, bound {t_bound:.4f} ms "
+          f"({100 * t_bound / t_k:.1f}%) | plain {t_plain:.4f} ms | library "
+          f"(grouped conv) {t_lib:.4f} ms", flush=True)
+    return row(err, calls * t_k, calls * t_plain, calls * t_bound, "bytes",
+               calls * t_lib, x.dtype)
+
+
+def _fir_serving_calls(fir, batch):
+    """(shape, dtype, filter, parameters) of every FIR call of one serving
+    forward at `batch` (the fashion generator at published widths, fp32,
+    through a one-card mesh, which runs eagerly), with the counters at 0
+    just before it: FIR_PER_BATCH launches, none for a gradient, none
+    plain."""
+    from pasta_tpu_torch.models import Generator
+    from pasta_tpu_torch.serving import TryonPipeline
+
+    model = Generator(seed=0).eval().to("cuda")
+    pipe = TryonPipeline(model, mode="upper", mesh=["cuda"])
+    items = _items(pipe, range(batch), 3.0)
+    seen, launch = [], fir._launch
+
+    def record(x, f, p, bwd):
+        seen.append((tuple(x.shape), x.dtype, f, p))
+        return launch(x, f, p, bwd)
+
+    _fir_reset(fir)
+    fir._launch = record
+    try:
+        with pipe:
+            pipe.run_batch(items)
+        torch.cuda.synchronize()
+    finally:
+        fir._launch = launch
+    counts = _fir_counts(fir)
+    check(counts == (FIR_PER_BATCH, 0, 0) and len(seen) == FIR_PER_BATCH,
+          f"serving forward at batch {batch}: FIR launches, gradient "
+          f"launches, plain {counts}, calls {len(seen)}; want "
+          f"({FIR_PER_BATCH}, 0, 0)")
+    del model, pipe
+    torch.cuda.empty_cache()
+    return seen
+
+
+def phase_kernel_fir(fir, batch):
+    """The FIR kernel at every call of a serving forward at `batch` and at
+    D's resampling at the training batch, forward and input gradient,
+    against its plain version. Returns (its rows, the serving forward's
+    rows)."""
+    from pasta_tpu_torch.ops import setup_filter
+
+    dev = torch.device("cuda")
+    calls = _fir_serving_calls(fir, batch)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for (shape, dtype, p), k in collections.Counter(
+            (c[0], c[1], c[3]) for c in calls).items():
+        f = next(c[2] for c in calls if (c[0], c[1], c[3]) == (shape, dtype, p))
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        rows.append(_fir_row(fir, "serving", x, f, p, k, g))
+    serving = list(rows)
+    f = setup_filter([1, 3, 3, 1]).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in FIR_D_SHAPES:
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            for down, pad in FIR_D_CALLS:
+                p = (1, 1, down, down, *pad, False, 1.0)
+                rows.append(_fir_row(fir, "D", x, f, p, 1, g))
+                out_hw = fir._out_hw(shape[1], shape[2], f, p)
+                dy = torch.randn((shape[0], *out_hw, shape[3]), generator=g,
+                                 device=dev).to(dtype)
+                t = fir._transposed(p, f, shape[1:3], out_hw)
+                rows.append(_fir_row(fir, "D dX", dy, f, t, 1, g))
+                del dy
+            del x
+    sums = {k: sum(r[k] for r in serving)
+            for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    print(f"[kernel-fir] serving forward at batch {batch}: {FIR_PER_BATCH} "
+          f"calls, {len(serving)} distinct | kernel {sums['ms']:.4f} ms, "
+          f"bound {sums['bound_ms']:.4f} ms "
+          f"({100 * sums['bound_ms'] / sums['ms']:.1f}%) | plain "
+          f"{sums['plain_ms']:.4f} ms | library {sums['library_ms']:.4f} ms",
+          flush=True)
+    torch.cuda.empty_cache()
+    return rows, serving
+
+
 def _items(pipe, seeds, jitter):
     from pasta_tpu_torch.data.synthetic import make_garment, make_person
 
@@ -469,7 +677,9 @@ def _items(pipe, seeds, jitter):
             for s in seeds]
 
 
-def phase_main(batch, n_timed):
+def phase_main(fir, batch, n_timed):
+    """Returns K1's kernels traced and the FIR kernel's (counted launches,
+    kernels traced)."""
     from pasta_tpu_torch.models import Generator
     from pasta_tpu_torch.serving import TryonPipeline
 
@@ -490,6 +700,7 @@ def phase_main(batch, n_timed):
           f"num_bf16_res=3, built in {t1 - t0:.2f} s | host_prepare "
           f"{2 * batch / (t2 - t1):.2f} pairs/s (1 process)", flush=True)
 
+    _fir_reset(fir)
     out = pipe.run_batch(tiled_items)            # warm-up (first launches)
     torch.cuda.synchronize()
 
@@ -506,6 +717,7 @@ def phase_main(batch, n_timed):
         torch.cuda.synchronize()
         t_full = time.perf_counter() - t0
     launches = seen["launches"]
+    fir_counts = _fir_counts(fir)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     check(tiled_path and not pipe.last_tiled, "path selection")
@@ -515,16 +727,26 @@ def phase_main(batch, n_timed):
     n_batches = n_timed + 1
     check(launches == K1_PER_BATCH * n_batches,
           f"K1 kernels traced {launches} != {K1_PER_BATCH} x {n_batches}")
+    check(seen["fir"] == FIR_PER_BATCH * n_batches,
+          f"FIR kernels traced {seen['fir']} != {FIR_PER_BATCH} x "
+          f"{n_batches}")
+    # the counters see the eager run ahead of each key's capture: the tiled
+    # warm-up and the full path's batch
+    check(fir_counts == (2 * FIR_PER_BATCH, 0, 0),
+          f"FIR launches, gradient launches, plain {fir_counts} != "
+          f"({2 * FIR_PER_BATCH}, 0, 0)")
     print(f"[main] run_batch x{n_timed} tiled: {batch * n_timed / t_tiled:.2f}"
           f" img/s ({1e3 * t_tiled / n_timed:.1f} ms/batch of {batch}) | full"
           f" path x1: {batch / t_full:.2f} img/s | K1 kernels traced "
           f"{launches} ="
-          f" {K1_PER_BATCH} x {n_batches} batches | peak "
+          f" {K1_PER_BATCH} x {n_batches} batches | FIR kernels traced "
+          f"{seen['fir']} = {FIR_PER_BATCH} x {n_batches}, launches counted "
+          f"{fir_counts[0]} (2 eager batches), plain {fir_counts[2]} | peak "
           f"{peak:.2f} GiB | out range [{out.min().item():.3f}, "
           f"{out.max().item():.3f}]", flush=True)
     del model, pipe, out, out_full
     torch.cuda.empty_cache()
-    return launches
+    return launches, (fir_counts[0], seen["fir"])
 
 
 def phase_check():
@@ -828,8 +1050,11 @@ def _flat_params(module):
                       for p in module.parameters()])
 
 
-def phase_train(k1):
-    """The fashion preset's training step at batch 4 on the card."""
+def phase_train(k1, fir):
+    """The fashion preset's training step at batch 4 on the card. Returns
+    K1 / K2 / K3's launches, K1's fp32 ones, the host s/step and the FIR
+    kernel's (launches, gradient launches) of a regular step and of the R1
+    step."""
     from pasta_tpu_torch.cli import bench_train
     from pasta_tpu_torch.train.config import fashion_config
     from pasta_tpu_torch.train.steps import fetch_metrics
@@ -845,6 +1070,7 @@ def phase_train(k1):
     delta = cfg.batch_size / (cfg.ada_kimg * 1000)
     torch.cuda.reset_peak_memory_stats()
     bench_train.reset_kernel_counts()
+    _fir_reset(fir)
 
     def stepped(p0, metrics):
         """Finite metrics; ada_p moved by exactly one controller step, or
@@ -862,14 +1088,18 @@ def phase_train(k1):
     _, metrics = step(state, batch, gen)
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
+    fir_step = _fir_counts(fir)
     p = stepped(cfg.augment_p_init, fetch_metrics([metrics])[0])
     host, dev, steps = bench_train.timed_steps(step, state, batch, gen,
                                                N_TRAIN_TIMED)
     for metrics in steps:
         p = stepped(p, metrics)
+    fir_timed = tuple(a - b for a, b in zip(_fir_counts(fir), fir_step))
     host_r1, dev_r1, (metrics_r1,) = bench_train.timed_steps(
         step, state, batch, gen, 1, do_r1=True)
     stepped(p, metrics_r1)
+    fir_r1 = tuple(a - b - c for a, b, c in zip(_fir_counts(fir), fir_step,
+                                                 fir_timed))
     counts = bench_train.kernel_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     after = [_flat_params(m) for m in (state.g, state.d, state.dp)]
@@ -886,19 +1116,31 @@ def phase_train(k1):
     n_fp32 = k1.conv3x3_valid.launches_fp32
     check(n_fp32 == n_steps * TRAIN_K1_FP32,
           f"K1 fp32 launches {n_fp32} != {n_steps} x {TRAIN_K1_FP32}")
+    # every regular step makes the warm-up step's FIR calls, none plain; the
+    # R1 step adds D's and DP's forwards and their double backward
+    check(fir_step[0] > 0 and fir_step[1] > 0 and fir_step[2] == 0
+          and fir_timed == tuple(N_TRAIN_TIMED * n for n in fir_step),
+          f"FIR launches, gradient launches, plain of the warm-up step "
+          f"{fir_step}, of {N_TRAIN_TIMED} regular steps {fir_timed}")
+    check(fir_r1[0] >= fir_step[0] and fir_r1[1] > fir_step[1]
+          and fir_r1[2] == 0,
+          f"FIR launches, gradient launches, plain of the R1 step {fir_r1} "
+          f"against a regular step's {fir_step}")
     print(f"[train] warm-up {t_warm:.2f} s | regular x{N_TRAIN_TIMED}: "
           f"{host:.4f} s/step host, {dev:.4f} s/step CUDA events, "
           f"{host * 1000 / cfg.batch_size:.1f} sec/kimg | R1 step "
           f"{host_r1:.4f} s host, {dev_r1:.4f} s events | peak {peak:.2f} "
           f"GiB | launches K1 fwd {counts[0]}, K1 dX {counts[1]}, K2 "
           f"{counts[2]}, K3 {counts[3]} over {n_steps} steps (K1 fp32 "
-          f"{n_fp32}, bf16 {counts[0] + counts[1] - n_fp32}) | ada_p "
+          f"{n_fp32}, bf16 {counts[0] + counts[1] - n_fp32}) | FIR "
+          f"launches, gradient launches a regular step {fir_step[:2]}, R1 "
+          f"step {fir_r1[:2]}, plain 0 | ada_p "
           f"{float(state.ada_p):.6g} | r1 {metrics_r1['r1_penalty']:.4g} dp_r1 "
           f"{metrics_r1['dp_r1_penalty']:.4g} | metrics {metrics}",
           flush=True)
     del state, step, batch, before, after
     torch.cuda.empty_cache()
-    return counts, n_fp32, host
+    return counts, n_fp32, host, (fir_step[:2], fir_r1[:2])
 
 
 @contextlib.contextmanager
@@ -987,8 +1229,9 @@ def _k1_traced(dev):
     """K1's kernels that ran on the cards inside the block, read from a
     torch.profiler (CUPTI) trace of it, so those of a replayed CUDA graph
     too, which K1's launch counters do not see: the dict yielded gets
-    `launches` and `fp32` at the block's end (0 and 0 off a card)."""
-    seen = {"launches": 0, "fp32": 0}
+    `launches` and `fp32` at the block's end (0 and 0 off a card), and
+    `fir`, the FIR resampling kernel's."""
+    seen = {"launches": 0, "fp32": 0, "fir": 0}
     if torch.device(dev).type != "cuda":
         yield seen
         return
@@ -1001,6 +1244,7 @@ def _k1_traced(dev):
              if e.device_type == torch.autograd.DeviceType.CUDA]
     seen["fp32"] = sum(K1_KERNELS[0] in n for n in names)
     seen["launches"] = seen["fp32"] + sum(K1_KERNELS[1] in n for n in names)
+    seen["fir"] = sum(FIR_KERNEL in n for n in names)
 
 
 def _one_step(k1, state, step, batch, gen, dev, **kw):
@@ -3250,17 +3494,20 @@ def main(argv=None):
     from pasta_tpu_torch.ops import affine_warp as shift
     from pasta_tpu_torch.ops import conv3x3 as k1
 
-    phase_build(k1, shift)
+    # the module (the package's attribute of that name is the function)
+    fir = importlib.import_module("pasta_tpu_torch.ops.upfirdn2d")
+    phase_build(k1, shift, fir)
     if args.only == "mesh":
         print(json.dumps({"phase": "mesh",
                           "launches_mesh": phase_mesh(k1)}))
         print(smi)
         return
     rows = phase_kernel(k1, BATCH)
-    launches = phase_main(BATCH, N_TIMED)
+    fir_rows, fir_serving = phase_kernel_fir(fir, BATCH)
+    launches, fir_main = phase_main(fir, BATCH, N_TIMED)
     phase_check()
     train_rows = phase_kernel_train(k1, shift)
-    counts, n_fp32, step_s = phase_train(k1)
+    counts, n_fp32, step_s, fir_train = phase_train(k1, fir)
     phase_train_check(shift)
     run_counts, opt_run = phase_train_run(k1, step_s)
     opt_counts, opt_shapes = phase_train_options(k1, shift)
@@ -3352,6 +3599,22 @@ def main(argv=None):
               launches_options_run=opt_run[3],
               launches_dist=dist_counts[3],
               launches_matmul_warps=warp_counts[3]),
+        # launches: the serving batches' eager runs (phase 4), the
+        # training steps' forward and gradient launches (phase 7: a
+        # warm-up and N_TRAIN_TIMED regular steps, one R1 step)
+        entry("upfirdn2d", "pasta_tpu_torch/csrc/upfirdn2d.cu",
+              "none (pasta_tpu/ops/upfirdn2d.py: lax.conv_general_dilated)",
+              fir_main[0] + (1 + N_TRAIN_TIMED) * sum(fir_train[0])
+              + sum(fir_train[1]), fir_rows, 0.0,
+              launches_serving=fir_main[0], traced_serving=fir_main[1],
+              launches_train_step=fir_train[0][0],
+              launches_train_step_dx=fir_train[0][1],
+              launches_r1_step=fir_train[1][0],
+              launches_r1_step_dx=fir_train[1][1], launches_plain=0,
+              ms_serving_batch=total(fir_serving, "ms"),
+              bound_ms_serving_batch=total(fir_serving, "bound_ms"),
+              plain_ms_serving_batch=total(fir_serving, "plain_ms"),
+              library_ms_serving_batch=total(fir_serving, "library_ms")),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -785,3 +785,152 @@ def test_run_batch_from_two_threads(cuda):
     for i in range(2):
         assert len(got[i]) == 8
         assert all(torch.equal(o, want[i]) for o in got[i])
+
+
+# --------------------------------------------------------------------------
+# upfirdn2d: the FIR resampling kernel (csrc/upfirdn2d.cu) against its plain
+# version. Tolerances: fp32, summation order over at most 16 products,
+# 1e-5 of the output's scale; bf16, the kernel's one rounding of an fp32
+# sum against the plain version in fp32 on the same rounded inputs and
+# taps, 2^-7 of the scale.
+
+_FIR_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def _fir():
+    import importlib
+
+    return importlib.import_module("pasta_tpu_torch.ops.upfirdn2d")
+
+
+def _fir_close(got, want, dtype):
+    scale = want.abs().max().item()
+    err = (got.float() - want).abs().max().item()
+    assert err <= _FIR_TOL[dtype] * scale, (err, scale)
+
+
+def _fir_three_ways(cuda, shape, f, p, dtype, seed=0):
+    """Forward, input gradient and the gradient of that gradient of the
+    call with parameters `p`: the kernel's (through the Function) and the
+    plain version's in fp32 on the same rounded inputs, compared; returns
+    the kernel's launches (forward, for gradients) they took."""
+    fir = _fir()
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x0 = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    fd = None if f is None else f.to(cuda)
+    fr = None if fd is None else fd.to(dtype).float()
+    counts = (fir.upfirdn2d.launches, fir.upfirdn2d.launches_bwd,
+              fir.upfirdn2d.launches_plain)
+    x = x0.clone().requires_grad_(True)
+    y = fir._Upfirdn2d.apply(x, fd, p, False)
+    assert y.is_contiguous() and y.dtype == dtype
+    dy0 = torch.randn(y.shape, generator=gen, device=cuda).to(dtype)
+    v0 = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    dy = dy0.clone().requires_grad_(True)
+    (dx,) = torch.autograd.grad(y, x, dy, create_graph=True)
+    (ddy,) = torch.autograd.grad(dx, dy, v0)
+    torch.cuda.synchronize()
+    xr = x0.float().requires_grad_(True)
+    yr = fir._plain(xr, fr, p)
+    dyr = dy0.float().requires_grad_(True)
+    (dxr,) = torch.autograd.grad(yr, xr, dyr, create_graph=True)
+    (ddyr,) = torch.autograd.grad(dxr, dyr, v0.float())
+    for got, want in ((y, yr), (dx, dxr), (ddy, ddyr)):
+        assert got.shape == want.shape
+        _fir_close(got, want.detach(), dtype)
+    return (fir.upfirdn2d.launches - counts[0],
+            fir.upfirdn2d.launches_bwd - counts[1],
+            fir.upfirdn2d.launches_plain - counts[2])
+
+
+def _fir_p(up, down, pad, flip=False, gain=1.0):
+    up = (up, up) if isinstance(up, int) else up
+    down = (down, down) if isinstance(down, int) else down
+    return (*up, *down, *pad, flip, float(gain))
+
+
+# Unusual calls: a random (non-symmetric) filter both ways round, 3 x 3,
+# 1 x 4 and no filter; asymmetric up / down; crops; channel counts that
+# take the one-channel path (3, 6 fp32), a 16-byte path with 1 or 2
+# vectors a pixel (4, 8, 12 fp32; 8, 24 bf16); ragged tile edges.
+_FIR_ODD = [
+    ((2, 9, 11, 4), (4, 4), _fir_p(2, 1, (3, 2, 3, 2), gain=4)),
+    ((1, 7, 5, 12), (4, 4), _fir_p(2, 1, (2, 1, 2, 1), flip=True, gain=4)),
+    ((2, 13, 10, 8), (3, 3), _fir_p(1, 2, (1, 0, 2, 1), flip=True)),
+    ((1, 10, 9, 3), (4, 4), _fir_p(2, 1, (2, 1, 2, 1), gain=4)),
+    ((3, 6, 17, 6), (1, 4), _fir_p((2, 1), (1, 2), (2, 1, 0, 0))),
+    ((1, 12, 12, 8), (4, 4), _fir_p(2, 2, (1, 1, 2, 2), gain=4)),
+    ((2, 11, 8, 24), (4, 4), _fir_p(1, 1, (-1, 2, 3, -2))),
+    ((1, 8, 7, 4), None, _fir_p(1, 1, (-1, -2, 1, 0))),
+    ((1, 20, 70, 8), (4, 4), _fir_p(1, 2, (1, 1, 1, 1))),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(_FIR_ODD)))
+def test_upfirdn2d_odd_calls_match_plain(cuda, dtype, case):
+    shape, fshape, p = _FIR_ODD[case]
+    f = None
+    if fshape is not None:
+        rng = np.random.RandomState(case)
+        f = torch.from_numpy(rng.rand(*fshape).astype(np.float32) + 0.1)
+    n = _fir_three_ways(cuda, shape, f, p, dtype, seed=case)
+    assert n == (1, 2, 0)
+
+
+# The discriminators' resampling at batch 4 and their top three
+# resolutions (bf16 in training, fp32 below): the filter pass ahead of
+# conv1's stride-2 conv, and the skip's down 2.
+_D_SHAPES = [(4, 512, 512, 64), (4, 256, 256, 128), (4, 128, 128, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", _D_SHAPES)
+@pytest.mark.parametrize("down,pad", [(1, (2, 2, 2, 2)), (2, (1, 1, 1, 1))])
+def test_upfirdn2d_discriminator_shapes(cuda, dtype, shape, down, pad):
+    from pasta_tpu_torch.ops import setup_filter
+
+    n = _fir_three_ways(cuda, shape, setup_filter([1, 3, 3, 1]),
+                        _fir_p(1, down, pad), dtype)
+    assert n == (1, 2, 0)
+
+
+@pytest.mark.cuda
+def test_upfirdn2d_serving_forward(cuda, fashion_g):
+    """One serving forward at batch 8 (the fashion generator, fp32, run
+    eagerly as a one-card mesh runs it) launches the kernel 28 times and
+    takes the plain route never; then every FIR call it made, at its own
+    shape and parameters, matches the plain version forward, backward and
+    double backward."""
+    from pasta_tpu_torch.serving import TryonPipeline
+
+    fir = _fir()
+    seen = []
+    launch = fir._launch
+
+    def record(x, f, p, bwd):
+        seen.append((tuple(x.shape), f, p))
+        return launch(x, f, p, bwd)
+
+    model = fashion_g[0]
+    pipe = TryonPipeline(model, mode="upper", mesh=[cuda])
+    items = _graph_items(pipe, 8, tiled=True)
+    before = (fir.upfirdn2d.launches, fir.upfirdn2d.launches_plain)
+    fir._launch = record
+    try:
+        with pipe:
+            pipe.run_batch(items)
+        torch.cuda.synchronize()
+    finally:
+        fir._launch = launch
+    assert (fir.upfirdn2d.launches - before[0],
+            fir.upfirdn2d.launches_plain - before[1]) == (28, 0)
+    assert len(seen) == 28
+    calls = {(shape, p): f for shape, f, p in seen}
+    for (shape, p), f in sorted(calls.items(), key=lambda c: c[0][0]):
+        # (the SPADE encoder runs its two inputs as one batch of 16)
+        assert shape[0] in (8, 16)
+        n = _fir_three_ways(cuda, shape, f, p, torch.float32)
+        assert n == (1, 2, 0)
