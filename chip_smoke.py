@@ -9,8 +9,8 @@ disk, both loaders, the loop, snapshots, an exact resume) and the training
 options (grad_accum, Gpl, the contextual loss, the doubled parsing-D
 phase, freeze-D, the shared and the reused fakes), data-parallel training
 over ranks, evaluation (cli.calc_metrics's five metrics and the
-in-training metrics of cli.train), the matmul warps, the training run's
-try-on grid and trace, and a serving batch split over devices
+in-training metrics of cli.train), the training run's try-on grid and
+trace, the patch D and the legacy layers, and a serving batch split over devices
 (TryonPipeline(mesh=...)) -- with seeded random weights and seeded
 synthetic inputs, in phases:
 
@@ -150,17 +150,9 @@ synthetic inputs, in phases:
                     shape the detectors launched (Inception 64->96 at
                     35x35, VGG16 at 224 and LPIPS at 256) against plain,
                     timed in turns with plain and cuDNN, with its bound
- 16. matmul-warps -- TryonPipeline.run_batch at batch 8, the fashion G,
-                    through warp_impl gather, matmul and matmul_bf16, on a
-                    tiled batch (cut windows taken) and a full-path one:
-                    K1's 26 launches a batch, each matmul impl's warped
-                    planes against the gather's at the JAX package's budget
-                    (values off by more than 4.0 on the 255 scale: under
-                    2% / 3%), the finetune image's gap to the gather path,
-                    the assemble ms of each impl (CUDA events), peak
-                    memory; cli.dataset_tool packs a synthetic root into a
-                    zip and cli.train --data <zip> runs 2 steps at 512 px
-                    with --tryon-grid 3 --trace DIR (the grid's size and
+ 16. surface     -- cli.dataset_tool packs a synthetic root into a zip
+                    and cli.train --data <zip> runs 2 steps at 512 px with
+                    --tryon-grid 3 --trace DIR (the grid's size and
                     seconds, the Chrome trace parsed and naming K1, exact
                     launches); the patch D and five legacy layers forward
                     and backward, card against CPU (1e-5 of the scale)
@@ -1656,7 +1648,7 @@ def _assemble_checks(ts, tloop, root):
         lean_items.append(ts.preprocess_person_train_lean(rec, _GatesShut()))
         rec = pp.load_person(root, name, with_garment_parsing=True)
         host_items.append(ts.preprocess_person_train(rec, _GatesShut()))
-    lean_np, tiled, _ = ts.batch_to_lean_inputs(lean_items)
+    lean_np, tiled = ts.batch_to_lean_inputs(lean_items)
     check(tiled, "the synthetic persons do not fit the paste tiles")
     raw_np = ts.batch_to_raw_inputs(host_items)
 
@@ -2732,37 +2724,9 @@ def phase_evaluation(k1, shift, dev="cuda", small=False):
     return launched, rows
 
 
-WARP_IMPLS = ("gather", "matmul", "matmul_bf16")
-# the JAX package's own budget for the matmul warps against the gather
-# (tests/test_device_warp.py:121-155): the share of values of each plane
-# off by more than 4.0 on the 0..255 scale
-WARP_BUDGET = {"matmul": 0.02, "matmul_bf16": 0.03}
-WARP_PLANES = ("norm_img", "norm_img_lower", "denorm_upper_img",
-               "denorm_lower_img")
 GRID_K = 3             # phase 16's cross-pair grid: 3 x 3 try-ons
 PACKED_PERSONS = 8     # persons of the root dataset_tool packs
 LEGACY_TOL = 1e-5      # card vs CPU, of the output's (gradient's) scale
-
-
-def _warp_planes(dw, ing, impl, tiled, windowed):
-    """The four warped planes of an ingested upper-mode batch, as
-    assemble_inputs_device computes them with `impl`."""
-    from pasta_tpu_torch.data.host import CUT_WINDOW
-
-    args = [ing[k] for k in ("upper_img", "lower_img", "upper_mask",
-                             "lower_mask", "sleeve", "upper_cut_m",
-                             "lower_cut_m", "paste_m_inv", "part_valid")]
-    kw = dict(erode_k=8, track_wo_sleeve=True, warp_impl=impl,
-              sleeve_valid=ing.get("sleeve_valid"))
-    if not tiled:
-        norm = dw.normalize_patches_device(*args, **kw)
-    else:
-        if windowed:
-            kw.update(cut_window_offsets=ing["cut_window_offsets"],
-                      cut_window=CUT_WINDOW)
-        norm = dw.normalize_patches_device_tiled(*args, ing["tile_offsets"],
-                                                 **kw)
-    return {k: norm[k].float() for k in WARP_PLANES}
 
 
 def _card_vs_cpu(make, inputs, dev, tag, per_crop=False, **kw):
@@ -2820,131 +2784,28 @@ def _card_vs_cpu(make, inputs, dev, tag, per_crop=False, **kw):
     return worst, flipped
 
 
-def phase_matmul_warps(k1, shift, dev="cuda", small=False):
-    """The matmul warps at full width and the training run's new pieces.
-    (a) TryonPipeline.run_batch at batch 8, the fashion G, through the
-    gather, "matmul" and "matmul_bf16", on a tiled batch (cut windows
-    taken) and a full-path batch: K1's 26 launches a batch, the warped
-    planes of each matmul impl against the gather's at the JAX package's
-    budget, the finetune image's gap to the gather path (printed), the
-    assemble ms of each impl (CUDA events) and its peak memory. (b)
+def phase_surface(k1, shift, dev="cuda", small=False):
+    """The training run's surface and the legacy layers. (a)
     cli.dataset_tool packs a synthetic root into a zip; cli.train --data
     <zip> runs 2 steps at 512 px with --tryon-grid 3 --trace DIR: the
     grid's size and seconds, the trace parsed, K1's kernels named in it,
-    exact launches. (c) the patch D and a few legacy layers, forward and
+    exact launches. (b) the patch D and a few legacy layers, forward and
     backward, card against CPU at a narrow size. `small` shrinks the
-    batch, the G and the training config (a CPU rehearsal). Returns the
-    launches (K1 fwd, K1 dX, K2, K3) of the phase."""
+    training config (a CPU rehearsal). Returns the launches (K1 fwd, K1
+    dX, K2, K3) of the phase."""
     from pasta_tpu_torch.cli import bench_train
     from pasta_tpu_torch.cli import dataset_tool
     from pasta_tpu_torch.cli import train as cli_train
-    from pasta_tpu_torch.data import device_warp as dw
     from pasta_tpu_torch.data.synthetic import write_dataset_root
-    from pasta_tpu_torch.models import Generator, PatchCoOccurrenceDiscriminator
+    from pasta_tpu_torch.models import PatchCoOccurrenceDiscriminator
     from pasta_tpu_torch.nn import legacy as nl
-    from pasta_tpu_torch.serving import (TryonPipeline,
-                                         assemble_inputs_device,
-                                         ingest_device)
     from pasta_tpu_torch.train import loop as tloop
 
     card = torch.device(dev).type == "cuda"
     t_phase = time.perf_counter()
     launched = collections.Counter()
 
-    # (a) the warps at full width
-    batch = 1 if small else BATCH
-    g_cfg = (dict(channel_base=2048, channel_max=128) if small
-             else dict(num_bf16_res=3))
-    model = Generator(seed=0, **g_cfg).eval().to(dev)
-    pipes = {impl: TryonPipeline(model, mode="upper", warp_impl=impl)
-             for impl in WARP_IMPLS}
-    full_seeds = [101] if small else range(100, 100 + batch)  # 101 misfits
-    batches = {"tiled": _items(pipes["gather"], range(batch), 3.0),
-               "full": _items(pipes["gather"], full_seeds, 40.0)}
-    check(all(bool(it["tiles_fit"]) and bool(it["cut_fits"])
-              for it in batches["tiled"]),
-          "matmul-warps: the tiled batch does not fit its tiles and windows")
-    check(not all(bool(it["tiles_fit"]) for it in batches["full"]),
-          "matmul-warps: the full-path batch fits its paste tiles")
-    outs, peaks, ms, apeaks = {}, {}, {}, {}
-    bench_train.reset_kernel_counts()
-    for impl in WARP_IMPLS:
-        for path, items in batches.items():
-            if card:
-                torch.cuda.reset_peak_memory_stats()
-            out = pipes[impl].run_batch(items)
-            _sync(dev)
-            peaks[impl, path] = _peak_gib(dev)
-            check(pipes[impl].last_tiled == (path == "tiled")
-                  and pipes[impl].last_cut_windowed == (path == "tiled"),
-                  f"matmul-warps: {impl} {path} path selection")
-            check(bool(torch.isfinite(out).all()),
-                  f"matmul-warps: {impl} {path} non-finite output")
-            outs[impl, path] = out.float().cpu()
-    runs = len(WARP_IMPLS) * len(batches)
-    counts = _launches(k1)
-    check(not card or counts[0] == K1_PER_BATCH * runs,
-          f"matmul-warps: K1 launches {counts[0]} != {K1_PER_BATCH} x {runs}")
-    launched.update(dict(zip("fdab", counts[:4])))
-    lines = []
-    for path, items in batches.items():
-        tiled = path == "tiled"
-        ing = ingest_device(pipes["gather"]._upload(items))
-        planes = {impl: _warp_planes(dw, ing, impl, tiled, tiled)
-                  for impl in WARP_IMPLS}
-        for impl in WARP_IMPLS:
-            if card:
-                def assemble():
-                    return assemble_inputs_device(
-                        ing, "upper", tiled=tiled, warp_impl=impl,
-                        cut_windowed=tiled)
-
-                torch.cuda.synchronize()
-                base = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                assemble()
-                torch.cuda.synchronize()
-                apeaks[impl, path] = (torch.cuda.max_memory_allocated()
-                                      - base) / 2 ** 30
-                ms[impl, path] = cuda_ms(assemble, 3)
-            if impl == "gather":
-                continue
-            shares = {k: float(((planes[impl][k] - planes["gather"][k])
-                                .abs() > 4.0).float().mean())
-                      for k in WARP_PLANES}
-            for k, share in shares.items():
-                # over the batch of 8, as phase 4's: one synthetic item
-                # alone reaches 2.45% (the JAX package's warps too), so
-                # the one-item rehearsal prints the shares only
-                check(small or share < WARP_BUDGET[impl],
-                      f"matmul-warps: {impl} {path} {k}: {100 * share:.3f}% "
-                      f"of values off the gather's by > 4.0 (budget "
-                      f"{100 * WARP_BUDGET[impl]:.0f}%)")
-            frac, mean = _budget(outs[impl, path], outs["gather", path])
-            lines.append(
-                f"{impl} {path}: planes off the gather's by > 4.0 "
-                + ", ".join(f"{k} {100 * v:.3f}%" for k, v in shares.items())
-                + f" (budget {100 * WARP_BUDGET[impl]:.0f}%) | finetune vs "
-                f"gather {100 * frac:.3f}% beyond 1e-2 of the range, mean "
-                f"{mean:.3g} of it")
-        del ing, planes
-    for line in lines:
-        print(f"[matmul-warps] {line}", flush=True)
-    print(f"[matmul-warps] run_batch x{runs} at batch {batch} ({', '.join(WARP_IMPLS)}"
-          f"; tiled with cut windows, full path) | K1 launches {counts[0]} = "
-          f"{K1_PER_BATCH} x {runs} | assemble ms (CUDA events) "
-          + ", ".join(f"{i} {p} {ms.get((i, p), float('nan')):.2f}"
-                      for i in WARP_IMPLS for p in batches)
-          + " | peak GiB of each run_batch "
-          + ", ".join(f"{i} {p} {peaks[i, p]:.2f}" for i in WARP_IMPLS
-                      for p in batches)
-          + " | the assembly's own peak GiB above what it is given "
-          + ", ".join(f"{i} {p} {apeaks.get((i, p), float('nan')):.2f}"
-                      for i in WARP_IMPLS for p in batches), flush=True)
-    del model, pipes, outs
-    _free(dev)
-
-    # (b) dataset_tool -> cli.train --tryon-grid --trace
+    # (a) dataset_tool -> cli.train --tryon-grid --trace
     tmp = tempfile.mkdtemp(prefix="pasta_smoke_grid_")
     try:
         src = os.path.join(tmp, "src")
@@ -2992,13 +2853,13 @@ def phase_matmul_warps(k1, shift, dev="cuda", small=False):
         with open(os.path.join(run, "stats.jsonl")) as f:
             rows = [json.loads(line) for line in f]
         check([r["step"] for r in rows] == [1, 2],
-              f"matmul-warps: traced run's stats rows {rows}")
+              f"surface: traced run's stats rows {rows}")
         res = 64 if small else 512
         import PIL.Image
         img = PIL.Image.open(os.path.join(run, "tryon_grid000002.png"))
         side = (GRID_K + 1) * res + 4
         check(img.size == (side, side) and len(grid_s) == 1,
-              f"matmul-warps: grid {img.size}, {len(grid_s)} grids")
+              f"surface: grid {img.size}, {len(grid_s)} grids")
         trace_file = os.path.join(trace, "trace.json")
         mb = os.path.getsize(trace_file) / 2 ** 20
         t0 = time.perf_counter()
@@ -3008,14 +2869,14 @@ def phase_matmul_warps(k1, shift, dev="cuda", small=False):
         k1_events = [e for e in events if e.get("cat") == "kernel"
                      and "conv3x3" in e.get("name", "")]
         check(not card or k1_events,
-              "matmul-warps: no K1 kernel (conv3x3) in the Chrome trace")
+              "surface: no K1 kernel (conv3x3) in the Chrome trace")
         first, rest = STEP_LAUNCHES["default", "r1"], STEP_LAUNCHES[
             "default", "regular"]
         draws = (2 * G_FWD_K1, 0, 0, 0, 2 * G_FWD_K1)  # snapshot + grid
         want = tuple(a + b + c for a, b, c in zip(first, rest, draws))
         check(small or not card or counts == want,
-              f"matmul-warps: traced run launches {counts} != {want}")
-        print(f"[matmul-warps] dataset_tool packed {len(names)} persons "
+              f"surface: traced run launches {counts} != {want}")
+        print(f"[surface] dataset_tool packed {len(names)} persons "
               f"({len(members)} members) in {t_pack:.2f} s | cli.train "
               f"--data packed.zip --max-steps 2 "
               f"--tryon-grid {GRID_K} --trace: {seconds:.1f} s, grid "
@@ -3028,7 +2889,7 @@ def phase_matmul_warps(k1, shift, dev="cuda", small=False):
         shutil.rmtree(tmp, ignore_errors=True)
     _free(dev)
 
-    # (c) the patch D and legacy layers, card vs CPU
+    # (b) the patch D and legacy layers, card vs CPU
     gen = torch.Generator().manual_seed(17)
 
     def rand(*shape):
@@ -3043,7 +2904,7 @@ def phase_matmul_warps(k1, shift, dev="cuda", small=False):
         per_crop=True)
     counts = _launches(k1)
     check(not card or counts[:2] == (8, 8),
-          f"matmul-warps: patch D K1 fwd / dX {counts[:2]} != (8, 8)")
+          f"surface: patch D K1 fwd / dX {counts[:2]} != (8, 8)")
     launched.update(dict(zip("fdab", counts[:4])))
     mask = (rand(2, 16, 16, 1) > 0).float()
     errs["PartialResBlock"], _ = _card_vs_cpu(
@@ -3062,11 +2923,11 @@ def phase_matmul_warps(k1, shift, dev="cuda", small=False):
     errs["ResBlockDecoder"], _ = _card_vs_cpu(
         lambda: nl.ResBlockDecoder(16, 8), [rand(2, 8, 8, 16)], dev,
         "ResBlockDecoder", train=True)
-    print("[matmul-warps] card vs CPU, forward and backward (largest error "
+    print("[surface] card vs CPU, forward and backward (largest error "
           f"of its scale, bound {LEGACY_TOL}; the patch D's K1 fwd / dX "
           f"{counts[:2]}, {flipped} crop's gradient flipped): "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
-    print(f"[matmul-warps] phase {time.perf_counter() - t_phase:.1f} s",
+    print(f"[surface] phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return tuple(launched[k] for k in "fdab")
 
@@ -3516,7 +3377,7 @@ def main(argv=None):
     dist_counts, _ = phase_dist()
     infer_counts, infer_rows = phase_inference(k1, shift)
     eval_launches, eval_rows = phase_evaluation(k1, shift)
-    warp_counts = phase_matmul_warps(k1, shift)
+    surface_counts = phase_surface(k1, shift)
     mesh_launches = phase_mesh(k1)
     k1_rows = rows + train_rows["K1"] + infer_rows + eval_rows
 
@@ -3547,15 +3408,15 @@ def main(argv=None):
     # run through the command line and its run with the options, the
     # options' steps, the data-parallel steps summed over their ranks, the
     # inference runs through cli.test, the evaluation's serving run,
-    # metrics and training run with the metrics, the matmul warps' serving
-    # batches, the traced training run with its grid and the patch D, the
-    # mesh's batches over every card), summed
+    # metrics and training run with the metrics, the traced training run
+    # with its grid and the patch D, the mesh's batches over every card),
+    # summed
     print(json.dumps({"kernels": [
         entry("conv3x3_valid", "pasta_tpu_torch/csrc/conv3x3.cu",
               "pasta_tpu/ops/pallas_conv.py:139",
               launches + k1_total + sum(run_counts[:2]) + sum(opt_run[:2])
               + sum(opt_counts[:2]) + sum(dist_counts[:2]) + infer_counts[0]
-              + eval_launches + sum(warp_counts[:2]) + mesh_launches,
+              + eval_launches + sum(surface_counts[:2]) + mesh_launches,
               k1_rows, opt_errs["K1"], launches_serving=launches,
               launches_train=counts[0],
               launches_dx=counts[1], launches_train_run=run_counts[0],
@@ -3572,8 +3433,8 @@ def main(argv=None):
               launches_inference_fp32=infer_counts[1],
               ms_inference=total(infer_rows, "ms"),
               launches_evaluation=eval_launches,
-              launches_matmul_warps=warp_counts[0],
-              launches_matmul_warps_dx=warp_counts[1],
+              launches_surface=surface_counts[0],
+              launches_surface_dx=surface_counts[1],
               launches_mesh=mesh_launches,
               ms_evaluation=total(eval_rows, "ms"),
               ms_fp32=total(fp32, "ms"), ms_bf16=total(bf16, "ms"),
@@ -3584,21 +3445,21 @@ def main(argv=None):
         entry("shift_fwd", "pasta_tpu_torch/csrc/shift.cu",
               "pasta_tpu/ops/affine_warp.py:142",
               counts[2] + run_counts[2] + opt_run[2] + opt_counts[2]
-              + dist_counts[2] + warp_counts[2],
+              + dist_counts[2] + surface_counts[2],
               train_rows["K2"], opt_errs["K2"], launches_train=counts[2],
               launches_train_run=run_counts[2], launches_options=opt_counts[2],
               launches_options_run=opt_run[2],
               launches_dist=dist_counts[2],
-              launches_matmul_warps=warp_counts[2]),
+              launches_surface=surface_counts[2]),
         entry("shift_bwd", "pasta_tpu_torch/csrc/shift.cu",
               "pasta_tpu/ops/affine_warp.py:181",
               counts[3] + run_counts[3] + opt_run[3] + opt_counts[3]
-              + dist_counts[3] + warp_counts[3],
+              + dist_counts[3] + surface_counts[3],
               train_rows["K3"], opt_errs["K3"], launches_train=counts[3],
               launches_train_run=run_counts[3], launches_options=opt_counts[3],
               launches_options_run=opt_run[3],
               launches_dist=dist_counts[3],
-              launches_matmul_warps=warp_counts[3]),
+              launches_surface=surface_counts[3]),
         # launches: the serving batches' eager runs (phase 4), the
         # training steps' forward and gradient launches (phase 7: a
         # warm-up and N_TRAIN_TIMED regular steps, one R1 step)

@@ -67,7 +67,7 @@ def _stages(pipe, items, tiled):
         t0 = time.perf_counter()
         ev[0].record()
         batch = {k: torch.from_numpy(np.stack([it[k] for it in items])).to(
-            pipe.device) for k in items[0] if k not in ("tiles_fit", "cut_fits")}
+            pipe.device) for k in items[0] if k != "tiles_fit"}
         ev[1].record()
         ing = ingest_device(batch)
         ev[2].record()

@@ -6,21 +6,16 @@ Semantics match cv2 defaults used by the reference:
       coordinates, dst->src mapping via the inverse matrix.
   erode (k x k ones) -- window minimum; out-of-image treated as +inf.
 
-Two warp backends, chosen by `warp_impl`: "gather" (pointwise bilinear
-taps, the bit-parity oracle) and the one-hot matmul two-pass of
-ops/projective_warp.py, "matmul" (fp32 weights) or "matmul_bf16" (bf16
-weights). "auto" resolves to "gather", as the JAX package resolves it off
-its TPU. The host layout helpers live in data/host.py.
+One warp, the pointwise bilinear gather (warp_perspective_multi), which
+is what the JAX package's `warp_impl="auto"` resolves to off its TPU. The
+host layout helpers live in data/host.py.
 """
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
-from ..ops.projective_warp import warp_perspective_matmul_multi
 from .device_cond import dilate_cv, resident
 from .geometry import BODY_PARTS, LOWER_PARTS, SLEEVE_PARTS
 from .host import PASTE_TILE
@@ -111,41 +106,19 @@ def erode(mask, k):
     return -dilate_cv(-mask, k)
 
 
-# Warped-mask interior threshold of the exact (gather, fp32 matmul) warps:
-# bilinear-warped constants can be 1 ulp off 255, and erosion's window-min
-# propagates it.
+# Warped-mask interior threshold: bilinear-warped constants can be 1 ulp
+# off 255, and erosion's window-min propagates it.
 MASK_THRESH = 254.5
 
 
-def _mask_thresh(warp_impl):
-    """The warped-mask interior threshold of a resolved impl: 254.5, or
-    252.5 for bf16 one-hot weights, whose pair sums carry a 2 * 2^-8
-    relative error over the two passes (255 * (1 +/- 2 * 2^-8))."""
-    return 252.5 if warp_impl == "matmul_bf16" else 254.5
-
-
 def resolve_warp_impl(impl):
-    """'auto' -> 'gather' (the JAX package's pick off its TPU); the others
-    as they are. Callers resolve BEFORE branching on the impl string: the
-    warped-mask threshold (_mask_thresh) depends on it."""
-    if impl == "auto":
-        return "gather"
-    if impl not in ("gather", "matmul", "matmul_bf16"):
-        raise ValueError(f"warp_impl {impl!r} (auto, gather, matmul, "
-                         "matmul_bf16)")
-    return impl
-
-
-def _warp_multi(impl):
-    """The multi-part warp of a warp_impl: the pointwise gather, or the
-    one-hot two-pass with fp32 ('matmul') or bf16 ('matmul_bf16') weights.
-    """
-    impl = resolve_warp_impl(impl)
-    if impl == "gather":
-        return warp_perspective_multi
-    return functools.partial(
-        warp_perspective_matmul_multi,
-        w_dtype=torch.bfloat16 if impl == "matmul_bf16" else torch.float32)
+    """'auto' and 'gather' -> 'gather', the port's one warp; any other name
+    raises."""
+    if impl not in ("auto", "gather"):
+        raise ValueError(
+            f"warp_impl {impl!r}: the port's one warp is the gather "
+            "('auto' or 'gather'); the matmul warps stay in pasta_tpu only")
+    return "gather"
 
 
 def _cut_src_stack(upper_img, lower_img, upper_mask, lower_mask,
@@ -172,8 +145,7 @@ def _cut_src_stack(upper_img, lower_img, upper_mask, lower_mask,
 
 
 def _cuts(upper_img, lower_img, upper_mask, lower_mask, sleeve_mask,
-          upper_cut_m, lower_cut_m, part_valid, sleeve_valid, patch,
-          warp_multi, **cut_kw):
+          upper_cut_m, lower_cut_m, part_valid, sleeve_valid, patch):
     """All 15 cut warps (10 upper parts + 5 lower) as one multi-part warp.
     Returns (cuts [B, 15, p, p, 4], cut_valid [B, 15])."""
     n_parts = len(BODY_PARTS)
@@ -185,7 +157,7 @@ def _cuts(upper_img, lower_img, upper_mask, lower_mask, sleeve_mask,
     cut_m = torch.cat([upper_cut_m, _lower(lower_cut_m)], dim=1)
     cut_valid = torch.cat(
         [part_valid[:, :, 0], _lower(part_valid)[:, :, 1]], dim=1).float()
-    cuts = warp_multi(src_stack, cut_src_idx, cut_m, patch, patch, **cut_kw)
+    cuts = warp_perspective_multi(src_stack, cut_src_idx, cut_m, patch, patch)
     return cuts * cut_valid[:, :, None, None, None], cut_valid
 
 
@@ -216,8 +188,7 @@ def _norm_outputs(cuts, denorm_upper, denorm_lower, denorm_upper_wo_sleeve):
 def normalize_patches_device(
     upper_img, lower_img, upper_mask, lower_mask, sleeve_mask,
     upper_cut_m, lower_cut_m, paste_m_inv, part_valid,
-    patch=128, erode_k=5, track_wo_sleeve=False, warp_impl="gather",
-    sleeve_valid=None,
+    patch=128, erode_k=5, track_wo_sleeve=False, sleeve_valid=None,
 ):
     """Batched patch normalize/denormalize chain (full-canvas paste).
 
@@ -231,20 +202,18 @@ def normalize_patches_device(
     """
     b, h, w, _ = upper_img.shape
     n_parts = len(BODY_PARTS)
-    warp_impl = resolve_warp_impl(warp_impl)
-    warp_multi = _warp_multi(warp_impl)
     cuts, cut_valid = _cuts(upper_img, lower_img, upper_mask, lower_mask,
                             sleeve_mask, upper_cut_m, lower_cut_m,
-                            part_valid, sleeve_valid, patch, warp_multi)
+                            part_valid, sleeve_valid, patch)
 
     paste_m = torch.cat([paste_m_inv, _lower(paste_m_inv)], dim=1)
     paste_valid = _paste_valid(part_valid)
-    pasted = warp_multi(
+    pasted = warp_perspective_multi(
         cuts, np.arange(n_parts + len(LOWER_PARTS)), paste_m, h, w)
     d_imgs = pasted[..., 0:3]
     d_masks = pasted[..., 3:4]
     d_masks = (erode(d_masks.reshape(-1, h, w, 1), erode_k)
-               .reshape(d_masks.shape) >= _mask_thresh(warp_impl)).float()
+               .reshape(d_masks.shape) >= MASK_THRESH).float()
     d_masks = d_masks * (cut_valid * paste_valid)[:, :, None, None, None]
 
     # sequential composite (later parts overwrite)
@@ -268,32 +237,19 @@ def normalize_patches_device_tiled(
     upper_img, lower_img, upper_mask, lower_mask, sleeve_mask,
     upper_cut_m, lower_cut_m, paste_m_inv, part_valid, tile_offsets,
     patch=128, erode_k=5, track_wo_sleeve=False, tile=PASTE_TILE,
-    warp_impl="gather", cut_window_offsets=None, cut_window=0,
     sleeve_valid=None,
 ):
     """Tiled-paste variant: each part warps into a fixed tile around its
     destination quad. tile_offsets: [B, 15, 2] int (y, x) tile origins from
     host.paste_tile_layout; callers must have checked that every quad fits.
-
-    cut_window_offsets [B, 15, 2] / cut_window: the cut warps' source
-    windows (host.cut_window_layout; callers must have checked `cut_fits`).
-    They serve only the matmul warps; the gather cut reads the full source
-    and ignores them, as in the JAX package.
     """
     b, h, w, _ = upper_img.shape
     n_parts = len(BODY_PARTS)
     n_all = n_parts + len(LOWER_PARTS)
     dev = upper_img.device
-    warp_impl = resolve_warp_impl(warp_impl)
-    warp_multi = _warp_multi(warp_impl)
-    cut_kw = {}
-    if cut_window_offsets is not None and warp_impl != "gather":
-        cut_kw = dict(src_window_offsets=cut_window_offsets,
-                      src_window=cut_window)
     cuts, cut_valid = _cuts(upper_img, lower_img, upper_mask, lower_mask,
                             sleeve_mask, upper_cut_m, lower_cut_m,
-                            part_valid, sleeve_valid, patch, warp_multi,
-                            **cut_kw)
+                            part_valid, sleeve_valid, patch)
 
     # Fold the tile translation into the dst->src matrices:
     # dst = t + off  =>  m_tile = m @ T(off).
@@ -305,12 +261,12 @@ def normalize_patches_device_tiled(
     paste_m_tile = paste_m.float() @ t_off
     paste_valid = _paste_valid(part_valid)
 
-    pasted = warp_multi(cuts, np.arange(n_all), paste_m_tile,
-                        tile, tile)                      # [B, 15, T, T, 4]
+    pasted = warp_perspective_multi(cuts, np.arange(n_all), paste_m_tile,
+                                    tile, tile)          # [B, 15, T, T, 4]
     t_imgs = pasted[..., 0:3]
     t_masks = pasted[..., 3:4]
     t_masks = (erode(t_masks.reshape(-1, tile, tile, 1), erode_k)
-               .reshape(t_masks.shape) >= _mask_thresh(warp_impl)).float()
+               .reshape(t_masks.shape) >= MASK_THRESH).float()
     t_masks = t_masks * (cut_valid * paste_valid)[:, :, None, None, None]
 
     bidx = torch.arange(b, device=dev)[:, None, None]

@@ -7,7 +7,7 @@ in behaviour (tests/test_torch_host.py holds them equal to the originals):
 
   host_prepare                               <- serving.py
   host_matrices_for_pair, paste_tile_layout,
-  cut_window_layout, part_layouts_for_pair   <- data/device_warp.py
+  part_layouts_for_pair (its paste tiles)    <- data/device_warp.py
   pose_device_params, flip_pose_params,
   _winding_normalized, palm_device_params    <- data/device_cond.py
 
@@ -24,7 +24,6 @@ from .geometry import BODY_PARTS, LOWER_PARTS, part_quads, perspective_batch
 from .pose import LIMB_SEQ, _rectangle_quad
 
 PASTE_TILE = 256
-CUT_WINDOW = 320
 
 
 # ---------------------------------------------------------------------------
@@ -223,48 +222,14 @@ def paste_tile_layout(paste_m_inv_parts, part_valid_paste, res=512,
     return offsets, fits
 
 
-def cut_window_layout(cut_m_parts, valid, res=512, win=CUT_WINDOW,
-                      margin=8, patch=128):
-    """Host: per-part source-window origins for the windowed cut.
+def part_layouts_for_pair(pinv, valid, paste_fwd=None):
+    """15-slot (upper x10 + lower x5) paste-tile layout.
 
-    Returns (offsets [P, 2] int32 (y, x), fits: bool).
-    """
-    corners = np.array(
-        [[0, 0, 1], [0, patch, 1], [patch, patch, 1], [patch, 0, 1]],
-        np.float64)
-    offsets = np.zeros((len(cut_m_parts), 2), np.int32)
-    fits = True
-    for i, m in enumerate(cut_m_parts):
-        if not valid[i]:
-            continue
-        proj = corners @ np.asarray(m, np.float64).T
-        xy = proj[:, :2] / np.maximum(np.abs(proj[:, 2:3]), 1e-9) * np.sign(
-            proj[:, 2:3])
-        x0 = np.floor(xy[:, 0].min()) - margin
-        x1 = np.ceil(xy[:, 0].max()) + margin
-        y0 = np.floor(xy[:, 1].min()) - margin
-        y1 = np.ceil(xy[:, 1].max()) + margin
-        if (x1 - x0) > win or (y1 - y0) > win:
-            fits = False
-        offsets[i] = (int(np.clip(y0, 0, res - win)),
-                      int(np.clip(x0, 0, res - win)))
-    return offsets, fits
-
-
-def part_layouts_for_pair(mu, ml, pinv, valid, paste_fwd=None):
-    """15-slot (upper x10 + lower x5) paste-tile / cut-window layouts.
-
-    Returns (tile_offsets [15, 2] i32, tiles_fit, cut_window_offsets
-    [15, 2] i32, cut_fits)."""
-    lower = list(LOWER_PARTS)
+    Returns (tile_offsets [15, 2] i32, tiles_fit)."""
     tile10, tiles_fit = paste_tile_layout(
         pinv, valid[:, 2], paste_fwd_parts=paste_fwd)
-    tile_offsets = np.concatenate([tile10, tile10[lower]], axis=0)
-    cw_u, fits_u = cut_window_layout(mu, valid[:, 0])
-    cw_l, fits_l = cut_window_layout(ml[lower], valid[lower, 1])
-    cut_window_offsets = np.concatenate([cw_u, cw_l], axis=0)
-    return (tile_offsets.astype(np.int32), bool(tiles_fit),
-            cut_window_offsets.astype(np.int32), bool(fits_u and fits_l))
+    tile_offsets = np.concatenate([tile10, tile10[list(LOWER_PARTS)]], axis=0)
+    return tile_offsets.astype(np.int32), bool(tiles_fit)
 
 
 # ---------------------------------------------------------------------------
@@ -315,8 +280,7 @@ def host_prepare(person, clothes, mode, use_sleeve_mask=True, cond="host"):
     mu, ml, pinv, valid, pfwd = host_matrices_for_pair(
         upper_src.keypoints, lower_src.keypoints, person.keypoints,
         return_paste_fwd=True)
-    tile_offsets, tiles_fit, cut_window_offsets, cut_fits = \
-        part_layouts_for_pair(mu, ml, pinv, valid, pfwd)
+    tile_offsets, tiles_fit = part_layouts_for_pair(pinv, valid, pfwd)
 
     # Host-side conditioning scalars; the warp-dependent parts of the
     # bound are finished on device. bound[ub:] slice semantics normalized
@@ -373,8 +337,6 @@ def host_prepare(person, clothes, mode, use_sleeve_mask=True, cond="host"):
             1.0 if sleeve_gp is not None else 0.0, np.float32),
         tile_offsets=tile_offsets,
         tiles_fit=np.asarray(tiles_fit),
-        cut_window_offsets=cut_window_offsets,
-        cut_fits=np.asarray(cut_fits),
         dress_transfer=np.asarray(
             0.0 if (mode == "full" and clothes_rt["dresses"][1] > 0)
             else 1.0, np.float32),

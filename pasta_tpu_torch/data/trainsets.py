@@ -15,12 +15,6 @@ target: UvitonDatasetFull_512 (the reference's training/dataset.py:
 
 Training consumes the ERASED lower patch stack and the `for_train` bound map
 (training_loop_fullbody.py:551-553 unpacking).
-
-The lean assembler takes the JAX package's `warp_impl` ("auto" is the
-bilinear gather, as off the TPU; "matmul" / "matmul_bf16" the one-hot
-two-pass of ops/projective_warp.py) and `cut_windowed`: the cut windows
-that `batch_to_lean_inputs` reports (`(batch, tiled, windowed)`) serve the
-matmul warps alone.
 """
 
 from __future__ import annotations
@@ -384,8 +378,7 @@ def preprocess_person_train_lean(person: PersonRecord,
     kps = person.keypoints
     mu, ml, pinv, valid, pfwd = host_matrices_for_pair(
         kps, kps, kps, return_paste_fwd=True)
-    tile_offsets, tiles_fit, cut_window_offsets, cut_fits = \
-        part_layouts_for_pair(mu, ml, pinv, valid, pfwd)
+    tile_offsets, tiles_fit = part_layouts_for_pair(pinv, valid, pfwd)
 
     # RNG draws for the erasure augmentation (dataset.py:1139-1170): the
     # branch conditions/uniforms are host scalars, the bbox-dependent strip
@@ -417,8 +410,6 @@ def preprocess_person_train_lean(person: PersonRecord,
         part_valid=valid,
         tile_offsets=tile_offsets,
         tiles_fit=np.asarray(tiles_fit),
-        cut_window_offsets=cut_window_offsets,
-        cut_fits=np.asarray(cut_fits),
         erasure=erasure,
         occlusion=occ,
         **{k: np.asarray(v) for k, v in person.pose_params.items()},
@@ -428,17 +419,14 @@ def preprocess_person_train_lean(person: PersonRecord,
 
 
 def batch_to_lean_inputs(items):
-    """Stack lean per-sample dicts; returns (batch dict, tiled, windowed)."""
+    """Stack lean per-sample dicts; returns (batch dict, tiled)."""
     tiled = all(bool(it["tiles_fit"]) for it in items)
-    windowed = tiled and all(bool(it["cut_fits"]) for it in items)
     batch = {k: np.stack([it[k] for it in items])
-             for k in items[0]
-             if k not in ("tiles_fit", "cut_fits", "person_name")}
-    return batch, tiled, windowed
+             for k in items[0] if k not in ("tiles_fit", "person_name")}
+    return batch, tiled
 
 
-def assemble_train_batch_lean(raw, tiled=True, cut_windowed=True,
-                              warp_impl="auto"):
+def assemble_train_batch_lean(raw, tiled=True):
     """Device-side lean raw batch -> train-step inputs.
 
     `raw`: the batch of `batch_to_lean_inputs` as tensors on one device
@@ -449,9 +437,7 @@ def assemble_train_batch_lean(raw, tiled=True, cut_windowed=True,
     (data/device_warp.py, bilinear gathers), sleeve mirroring, erasure +
     occlusion augmentation, gt parsing, and the final normalization/concat.
     tiled=True takes the fixed-tile paste; the caller must have checked
-    `tiles_fit` for every item (`batch_to_lean_inputs` does), and, for
-    cut_windowed=True on that path, `cut_fits`. warp_impl picks the warps
-    (data/device_warp.py::resolve_warp_impl).
+    `tiles_fit` for every item (`batch_to_lean_inputs` does).
     """
     from .device_cond import (draw_pose_device, palm_mask_device,
                               retain_mask_device, skin_median_device,
@@ -459,7 +445,6 @@ def assemble_train_batch_lean(raw, tiled=True, cut_windowed=True,
     from .device_warp import (normalize_patches_device,
                               normalize_patches_device_tiled,
                               mirror_sleeves_device)
-    from .host import CUT_WINDOW
 
     parsing = raw["parsing"]
     b = parsing.shape[0]
@@ -480,12 +465,8 @@ def assemble_train_batch_lean(raw, tiled=True, cut_windowed=True,
     args = (up * image_f, low * image_f, up * 255.0, low * 255.0, sleeve,
             raw["upper_cut_m"].float(), raw["lower_cut_m"].float(),
             raw["paste_m_inv"].float(), raw["part_valid"])
-    norm_kw = dict(erode_k=5, warp_impl=warp_impl,
-                   sleeve_valid=raw["sleeve_valid"])
+    norm_kw = dict(erode_k=5, sleeve_valid=raw["sleeve_valid"])
     if tiled:
-        if cut_windowed:
-            norm_kw.update(cut_window_offsets=raw["cut_window_offsets"],
-                           cut_window=CUT_WINDOW)
         norm = normalize_patches_device_tiled(*args, raw["tile_offsets"],
                                               **norm_kw)
     else:

@@ -122,7 +122,7 @@ def build_tryon_ppl_ctx(model, dataroot, pairs, part="upper",
     def to_inputs(items):
         batch = {}
         for k in items[0]:
-            if k not in ("tiles_fit", "cut_fits"):
+            if k != "tiles_fit":
                 t = torch.from_numpy(np.stack([np.asarray(it[k])
                                                for it in items]))
                 # float64 as float32, what jnp.asarray makes of it

@@ -35,7 +35,7 @@ from .data.device_warp import (MASK_THRESH, bound_from_mask_top, erode,
                                normalize_patches_device_tiled,
                                resolve_warp_impl, zero_bound_above_mask_bottom,
                                zero_conflicts_device)
-from .data.host import CUT_WINDOW, host_prepare
+from .data.host import host_prepare
 from .nn.synthesis import NoiseRows
 from .shapes import assert_batch_shapes
 
@@ -92,18 +92,13 @@ def ingest_device(host: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def assemble_inputs_device(host: Dict[str, torch.Tensor], mode: str,
-                           tiled: bool = False, warp_impl: str = "auto",
-                           cut_windowed: bool = False):
+                           tiled: bool = False):
     """Device: warps + assembly -> generator input dict.
 
-    tiled=True uses the fixed-tile paste path; callers must have verified
-    host["tiles_fit"] for every item. warp_impl: "auto" (the gather, as
-    the JAX package resolves it off its TPU), "gather", "matmul" (one-hot
-    two-pass, fp32 weights) or "matmul_bf16" (bf16 weights).
-    cut_windowed=True (tiled only; callers must have verified
-    host["cut_fits"] for every item) reads each cut warp's source through
-    its CUT_WINDOW window, which serves the matmul warps alone. Accepts
-    the raw host_prepare batch or ingest_device's output.
+    The cut and paste warps are the bilinear gather. tiled=True uses the
+    fixed-tile paste path; callers must have verified host["tiles_fit"]
+    for every item. Accepts the raw host_prepare batch or ingest_device's
+    output.
     """
     host = ingest_device(host)
     res = host["image"].shape[1]
@@ -120,14 +115,11 @@ def assemble_inputs_device(host: Dict[str, torch.Tensor], mode: str,
     }, name="host")
     erode_k = 8 if mode == "upper" else 5
     common = dict(erode_k=erode_k, track_wo_sleeve=(mode == "upper"),
-                  warp_impl=warp_impl, sleeve_valid=host.get("sleeve_valid"))
+                  sleeve_valid=host.get("sleeve_valid"))
     args = (host["upper_img"], host["lower_img"], host["upper_mask"],
             host["lower_mask"], host["sleeve"], host["upper_cut_m"],
             host["lower_cut_m"], host["paste_m_inv"], host["part_valid"])
     if tiled:
-        if cut_windowed and "cut_window_offsets" in host:
-            common.update(cut_window_offsets=host["cut_window_offsets"],
-                          cut_window=CUT_WINDOW)
         norm = normalize_patches_device_tiled(*args, host["tile_offsets"],
                                               **common)
     else:
@@ -220,7 +212,7 @@ def _stage(host_items, pin):
     memory where `pin`."""
     batch = {}
     for k in host_items[0]:
-        if k in ("tiles_fit", "cut_fits"):
+        if k == "tiles_fit":
             continue
         arrs = [np.asarray(it[k]) for it in host_items]
         dtype = torch.from_numpy(np.empty(0, arrs[0].dtype)).dtype
@@ -249,9 +241,9 @@ class TryonPipeline:
     ingest_device; the port's serving default) or "host" (host_prepare
     rasters it; the JAX pipeline's default). `noise_mode` is "const",
     "random" or "none"; "random" draws the synthesis noise on the model's
-    device, one seed a batch from `seed` (NoiseSeeds). `warp_impl` picks
-    the cut and paste warps (`assemble_inputs_device`; "auto" is the
-    gather).
+    device, one seed a batch from `seed` (NoiseSeeds). `warp_impl` names
+    the cut and paste warps: "auto" or "gather", the port's one warp
+    (`resolve_warp_impl`); it is taken for the JAX pipeline's signature.
 
     `mesh`, the counterpart of the JAX pipeline's one-axis Mesh, is an
     ordered sequence of torch devices ("cuda:0", torch.device("cuda", 1),
@@ -269,8 +261,7 @@ class TryonPipeline:
     On a card, without a mesh and with noise_mode other than "random",
     `run_batch` runs a batch's device work as one replay of a CUDA graph:
     the first batch of a key (batch size, each uploaded array's shape and
-    dtype, the tiled path, the cut windows where the warps read them,
-    `mode`, `warp_impl`) runs eagerly on a side stream, and its work is
+    dtype, the tiled path, `mode`) runs eagerly on a side stream, and its work is
     then captured; later batches of the key copy their arrays into the
     graph's inputs and replay it, and get a copy of its output (a caller
     may keep an image while later batches run). The graphs of a pipeline
@@ -318,7 +309,7 @@ class TryonPipeline:
             self._close = weakref.finalize(self, _close_pools,
                                            list(self._pools.values()))
         self._noise = NoiseSeeds(seed, self.device)
-        self.last_tiled = self.last_cut_windowed = None
+        self.last_tiled = None
         self._graphed = (self.device.type == "cuda" and self.mesh is None
                          and noise_mode != "random")
         self._graphs = {}
@@ -384,8 +375,8 @@ class TryonPipeline:
         return {k: t.to(device, non_blocking=pin)
                 for k, t in _stage(host_items, pin).items()}
 
-    def _forward(self, model, device, host_items, tiled, cut_windowed,
-                 generator, parent=None):
+    def _forward(self, model, device, host_items, tiled, generator,
+                 parent=None):
         """Queue one batch (or shard) on `device`. A shard's spans run on
         its device's thread: `parent` is its batch's `run_batch` span, and
         each carries the device."""
@@ -393,36 +384,31 @@ class TryonPipeline:
                                         "device": str(device)}
         with tracing.span("upload", **at):
             batch = self._upload(host_items, device)
-        return self._device_work(model, batch, tiled, cut_windowed,
-                                 generator, at)
+        return self._device_work(model, batch, tiled, generator, at)
 
-    def _device_work(self, model, batch, tiled, cut_windowed, generator,
-                     at=None):
+    def _device_work(self, model, batch, tiled, generator, at=None):
         """ingest -> assemble -> generator on an uploaded batch."""
         at = at or {}
         with tracing.span("ingest", **at):
             host = ingest_device(batch)
         with tracing.span("assemble", **at):
-            inputs = assemble_inputs_device(
-                host, self.mode, tiled=tiled, warp_impl=self.warp_impl,
-                cut_windowed=cut_windowed)
+            inputs = assemble_inputs_device(host, self.mode, tiled=tiled)
         with tracing.span("generator", **at):
             _, finetune, _ = model(noise_mode=self.noise_mode,
                                    generator=generator, **inputs)
         return finetune
 
-    def _queue_shards(self, device, stream, shards, tiled, cut_windowed,
-                      parent):
+    def _queue_shards(self, device, stream, shards, tiled, parent):
         """One device's host thread: queue its shards' work, in order, on
         `stream`; returns [(shard index, finetune)] without waiting."""
         on = (torch.cuda.stream(stream) if device.type == "cuda"
               else contextlib.nullcontext())
         with torch.inference_mode(), on:
             return [(k, self._forward(self._replicas[device], device, items,
-                                      tiled, cut_windowed, noise, parent))
+                                      tiled, noise, parent))
                     for k, items, noise in shards]
 
-    def _run_shards(self, host_items, tiled, cut_windowed, parent):
+    def _run_shards(self, host_items, tiled, parent):
         """The batch split over the mesh: the finetune image of each shard
         on its device, queued and not waited for; `parent` is the batch's
         `run_batch` span."""
@@ -443,7 +429,7 @@ class TryonPipeline:
             self._pools[d].submit(
                 self._queue_shards, d,
                 torch.cuda.current_stream(d) if d.type == "cuda" else None,
-                shards, tiled, cut_windowed, parent)
+                shards, tiled, parent)
             for d, shards in work.items()]
         outs = [None] * size
         for f in futures:
@@ -452,41 +438,35 @@ class TryonPipeline:
         return outs
 
     def _paths(self, host_items):
-        """(tiled, cut_windowed) of a batch, chosen over all of it."""
-        tiled = all(bool(it["tiles_fit"]) for it in host_items)
-        cut_windowed = tiled and all(bool(it.get("cut_fits", False))
-                                     for it in host_items)
-        self.last_tiled, self.last_cut_windowed = tiled, cut_windowed
-        return tiled, cut_windowed
+        """Whether a batch takes the tiled paste: every item's quads fit."""
+        self.last_tiled = all(bool(it["tiles_fit"]) for it in host_items)
+        return self.last_tiled
 
     def _queue(self, host_items):
         """The batch's outputs, one a shard of the mesh (one without a
         mesh), queued and not waited for, inside its `run_batch` span."""
-        tiled, cut_windowed = self._paths(host_items)
+        tiled = self._paths(host_items)
         with tracing.batch(), tracing.span(
-                "run_batch", size=len(host_items), tiled=tiled,
-                cut_windowed=cut_windowed) as span:
+                "run_batch", size=len(host_items), tiled=tiled) as span:
             how = "eager"
             if self.mesh is not None:
-                outs = self._run_shards(host_items, tiled, cut_windowed,
-                                        span)
+                outs = self._run_shards(host_items, tiled, span)
             elif self._graphed:
                 with torch.cuda.device(self.device):
-                    out, how = self._run_graphed(host_items, tiled,
-                                                 cut_windowed)
+                    out, how = self._run_graphed(host_items, tiled)
                 outs = [out]
             else:
                 generator = (self._noise.next()
                              if self.noise_mode == "random" else None)
                 outs = [self._forward(self.model, self.device, host_items,
-                                      tiled, cut_windowed, generator)]
+                                      tiled, generator)]
             with self._graph_lock:
                 self.graph_counts[how] += 1
             if span is not None:
                 span.attrs["graph"] = how
             return outs
 
-    def _run_graphed(self, host_items, tiled, cut_windowed):
+    def _run_graphed(self, host_items, tiled):
         """`_replay_or_capture` for one thread at a time, its device work
         queued after the previous graphed batch's."""
         with self._graph_lock:
@@ -494,19 +474,17 @@ class TryonPipeline:
             if self._done is None:
                 self._done = torch.cuda.Event()
             here.wait_event(self._done)
-            out, how = self._replay_or_capture(host_items, tiled,
-                                               cut_windowed)
+            out, how = self._replay_or_capture(host_items, tiled)
             self._done.record(here)
         return out, how
 
-    def _replay_or_capture(self, host_items, tiled, cut_windowed):
+    def _replay_or_capture(self, host_items, tiled):
         """(the batch's output, "replay" or "capture"): the replay of its
         key's graph, into a tensor of the caller's own; or, for a key not
         seen before, the batch run eagerly and its work captured."""
         with tracing.span("upload"):
             staged = _stage(host_items, pin=True)
-            key = (tiled, cut_windowed and self.warp_impl != "gather",
-                   self.mode, self.warp_impl,
+            key = (tiled, self.mode,
                    tuple((k, tuple(t.shape), t.dtype)
                          for k, t in staged.items()))
             graph = self._graphs.get(key)
@@ -517,13 +495,13 @@ class TryonPipeline:
                 for k, t in staged.items():
                     graph.inputs[k].copy_(t, non_blocking=True)
         if graph is None:
-            return self._capture(key, batch, tiled, cut_windowed), "capture"
+            return self._capture(key, batch, tiled), "capture"
         with tracing.span("replay"):
             graph.graph.replay()
             out = graph.output.clone()
         return out, "replay"
 
-    def _capture(self, key, batch, tiled, cut_windowed):
+    def _capture(self, key, batch, tiled):
         """Run the batch eagerly on a side stream (the warm-up PyTorch asks
         for before a capture), then capture the same work on it into the
         pipeline's memory pool as `key`'s graph, reading `batch`'s tensors
@@ -534,8 +512,7 @@ class TryonPipeline:
         side, here = self._side, torch.cuda.current_stream(self.device)
         side.wait_stream(here)
         with torch.cuda.stream(side):
-            out = self._device_work(self.model, batch, tiled, cut_windowed,
-                                    None)
+            out = self._device_work(self.model, batch, tiled, None)
         here.wait_stream(side)
         out.record_stream(here)     # the caller frees it after its reads
         graph = torch.cuda.CUDAGraph()
@@ -543,8 +520,7 @@ class TryonPipeline:
         # void the capture
         with torch.cuda.graph(graph, pool=self._pool, stream=side,
                               capture_error_mode="thread_local"):
-            static = self._device_work(self.model, batch, tiled,
-                                       cut_windowed, None)
+            static = self._device_work(self.model, batch, tiled, None)
         self._graphs[key] = _Graph(graph, batch, static)
         return out
 
@@ -552,11 +528,9 @@ class TryonPipeline:
     def run_batch(self, host_items):
         """host_prepare dicts -> finetune images [B, H, W, 3] on the device
         (queued, not waited for). Takes the tiled paste path when every
-        item's quads fit, and on it the cut windows when every item's cut
-        quads fit too (`cut_fits`); the windows feed only the matmul warps,
-        and the gather cut reads the full source either way. With a mesh,
-        both choices are made over the whole batch before it is split, and
-        the shards' outputs are gathered on the mesh's first device.
+        item's quads fit (`tiles_fit`). With a mesh, that choice is made
+        over the whole batch before it is split, and the shards' outputs
+        are gathered on the mesh's first device.
         """
         outs = self._queue(host_items)
         if self.mesh is None:

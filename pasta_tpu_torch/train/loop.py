@@ -112,7 +112,7 @@ class ParallelLoader:
         # (assemble_train_batch), so the host->device upload is ~6x smaller
         # than shipping the assembled float32 inputs. The device loader
         # (lean) ships only raw planes + scalars and yields
-        # (batch, tiled, windowed).
+        # (batch, tiled).
         self._pending = [self._submit(), self._submit()]
         while True:
             futs = self._pending.pop(0)
@@ -475,10 +475,9 @@ def _training_loop_impl(
         for step in range(start_step, total_steps):
             with torch.no_grad():
                 if lean_loader:
-                    batch_np, tiled, windowed = loaded
+                    batch_np, tiled = loaded
                     batch = assemble_train_batch_lean(
-                        upload_batch(batch_np, device), tiled=tiled,
-                        cut_windowed=windowed)
+                        upload_batch(batch_np, device), tiled=tiled)
                 else:
                     batch = assemble_train_batch(
                         upload_batch(loaded, device))

@@ -21,7 +21,7 @@ def batch():
                           "upper", cond="device")
              for s, j in ((0, 3.0), (1, 20.0), (2, 40.0))]
     return {k: np.stack([it[k] for it in items]) for k in items[0]
-            if k not in ("tiles_fit", "cut_fits")}
+            if k != "tiles_fit"}
 
 
 def _j(*arrays):

@@ -6,6 +6,7 @@ covers a different rounding of the tap blend. Composited masks pass an
 erode-then-threshold step, so a pixel whose warped value sits at the
 threshold may flip: at most 1e-4 of them may differ."""
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -41,22 +42,84 @@ def _homographies(rng, n):
     return m.astype(np.float32)
 
 
-def test_warp_perspective():
+def _quad_h(rng, src, out):
+    """dst->src homography of a random rotated perspective quad."""
+    dst = np.float32([[0, 0], [out - 1, 0], [out - 1, out - 1], [0, out - 1]])
+    ang = rng.uniform(0, 2 * np.pi)
+    rot = np.float32([[np.cos(ang), -np.sin(ang)],
+                      [np.sin(ang), np.cos(ang)]])
+    base = np.float32([[-1, -1], [1, -1], [1, 1], [-1, 1]]) \
+        * rng.uniform(src * 0.2, src * 0.45)
+    quad = (base @ rot.T) + src / 2 + rng.uniform(
+        -0.06 * src, 0.06 * src, (4, 2)).astype(np.float32)
+    return cv2.getPerspectiveTransform(dst, quad.astype(np.float32))
+
+
+def _random_maps():
     rng = np.random.RandomState(0)
     img = (rng.rand(2, 40, 36, 3) * 255).astype(np.float32)
-    m = _homographies(rng, 2)
-    got = tdw.warp_perspective(*_t(img, m), 48, 44)
-    assert got.shape == (2, 48, 44, 3)
-    _close(got, jdw.warp_perspective(*_j(img, m), 48, 44))
+    return img, _homographies(rng, 2), 48, 44
 
 
-def test_warp_perspective_multi():
+def _rotated_maps():
+    """Rotation-heavy quads, a quarter turn, and the all-zero matrix of an
+    invalid part (every denominator 0: _src_coords' safe branch)."""
+    rng = np.random.RandomState(3)
+    img = (rng.rand(8, 48, 48, 3) * 255).astype(np.float32)
+    turn = np.zeros((3, 3))
+    turn[0, 1], turn[1, 0], turn[1, 2], turn[2, 2] = 1.0, -1.0, 47.0, 1.0
+    m = np.stack([_quad_h(rng, 48, 40) for _ in range(6)]
+                 + [turn, np.zeros((3, 3))]).astype(np.float32)
+    return img, m, 40, 40
+
+
+def _axis_aligned_maps():
+    """An axis-aligned scale with integer shifts."""
+    rng = np.random.RandomState(2)
+    img = rng.uniform(0, 255, (2, 64, 64, 2)).astype(np.float32)
+    m = np.tile(np.eye(3, dtype=np.float32), (2, 1, 1))
+    m[:, 0, 0] = [0.53, 1.0]
+    m[:, 0, 2] = [3.0, -9.0]
+    m[:, 1, 2] = [0.0, 12.0]
+    return img, m, 48, 48
+
+
+@pytest.mark.parametrize("maps", [_random_maps, _rotated_maps,
+                                  _axis_aligned_maps],
+                         ids=["random", "rotated", "axis_aligned"])
+def test_warp_perspective(maps):
+    img, m, out_h, out_w = maps()
+    got = tdw.warp_perspective(*_t(img, m), out_h, out_w)
+    assert got.shape == (len(img), out_h, out_w, img.shape[-1])
+    assert np.isfinite(got.numpy()).all()
+    _close(got, jdw.warp_perspective(*_j(img, m), out_h, out_w))
+
+
+def _random_parts():
     rng = np.random.RandomState(1)
     src = (rng.rand(2, 3, 32, 30, 4) * 255).astype(np.float32)
     m = _homographies(rng, 10).reshape(2, 5, 3, 3)
-    idx = np.array([0, 2, 1, 1, 0])
-    _close(tdw.warp_perspective_multi(*_t(src), idx, *_t(m), 20, 24),
-           jdw.warp_perspective_multi(*_j(src), idx, *_j(m), 20, 24))
+    return src, np.array([0, 2, 1, 1, 0]), m, 20, 24
+
+
+def _rotated_parts():
+    """The rotated maps as 2 x 4 parts: the second item's last two are
+    the quarter turn and the all-zero matrix host prep gives an invalid
+    part."""
+    img, m, out_h, out_w = _rotated_maps()
+    src = np.concatenate([img, img[..., :1]], -1).reshape(2, 4, 48, 48, 4)
+    return src[:, :3], np.array([0, 2, 1, 0]), m.reshape(2, 4, 3, 3), \
+        out_h, out_w
+
+
+@pytest.mark.parametrize("parts", [_random_parts, _rotated_parts],
+                         ids=["random", "rotated"])
+def test_warp_perspective_multi(parts):
+    src, idx, m, out_h, out_w = parts()
+    got = tdw.warp_perspective_multi(*_t(src), idx, *_t(m), out_h, out_w)
+    assert got.shape == (2, len(idx), out_h, out_w, 4)
+    _close(got, jdw.warp_perspective_multi(*_j(src), idx, *_j(m), out_h,
+                                           out_w))
 
 
 @pytest.mark.parametrize("k", [5, 8])
@@ -73,7 +136,7 @@ def ingested():
              for s, j in ((0, 3.0), (1, 10.0))]
     assert all(bool(it["tiles_fit"]) for it in items)
     batch = {k: np.stack([it[k] for it in items]) for k in items[0]
-             if k not in ("tiles_fit", "cut_fits")}
+             if k != "tiles_fit"}
     out = ingest_device(dict(zip(batch, _t(*batch.values()))))
     return {k: v.numpy() for k, v in out.items()}
 

@@ -1,6 +1,8 @@
 """The port's host stage (pasta_tpu_torch/data/host.py) equals the
 functions it was carried from, on synthetic records: every output is
-`np.array_equal` to the original's."""
+`np.array_equal` to the original's, but for the cut windows (WINDOWS),
+which serve only the JAX package's matmul warps and which the port does
+not carry."""
 
 import dataclasses
 
@@ -15,10 +17,18 @@ from pasta_tpu.data import device_cond as jcond
 from pasta_tpu.data import device_warp as jwarp
 from pasta_tpu_torch.data import geometry, host, pose
 from pasta_tpu_torch.data import preprocess as pp
+from pasta_tpu_torch.data import trainsets as ts
 from pasta_tpu_torch.data.synthetic import make_garment, make_person
 
 # (seed, jitter): small jitter fits the paste tiles, large jitter does not
 PAIRS = [(0, 3.0), (2, 30.0), (3, 60.0)]
+# the JAX items' fields of the windowed cut, which the port does not carry
+WINDOWS = ("cut_window_offsets", "cut_fits")
+
+
+def _jax_item(item):
+    """A JAX host item without its WINDOWS."""
+    return {k: v for k, v in item.items() if k not in WINDOWS}
 
 
 def _jax_record(rec):
@@ -54,16 +64,16 @@ def test_host_prepare_equals_original(seed, jitter, mode, cond):
     got = host.host_prepare(person, clothes, mode, cond=cond)
     ref = jserving.host_prepare(_jax_record(person), _jax_record(clothes),
                                 mode, cond=cond)
-    _equal(got, ref, f"host_prepare[{mode},{cond}]")
+    _equal(got, _jax_item(ref), f"host_prepare[{mode},{cond}]")
 
 
 def test_host_prepare_without_sleeve_mask():
     person, clothes = make_person(4), make_garment(104)
     _equal(host.host_prepare(person, clothes, "upper", use_sleeve_mask=False,
                              cond="device"),
-           jserving.host_prepare(_jax_record(person), _jax_record(clothes),
-                                 "upper", use_sleeve_mask=False,
-                                 cond="device"),
+           _jax_item(jserving.host_prepare(
+               _jax_record(person), _jax_record(clothes), "upper",
+               use_sleeve_mask=False, cond="device")),
            "host_prepare[no sleeve]")
 
 
@@ -82,11 +92,31 @@ def test_matrices_and_layouts(seed, jitter):
     _equal(host.paste_tile_layout(pinv, valid[:, 2], paste_fwd_parts=pfwd),
            jwarp.paste_tile_layout(pinv, valid[:, 2], paste_fwd_parts=pfwd),
            "paste_tile_layout[fwd]")
-    _equal(host.cut_window_layout(mu, valid[:, 0]),
-           jwarp.cut_window_layout(mu, valid[:, 0]), "cut_window_layout")
-    _equal(host.part_layouts_for_pair(mu, ml, pinv, valid, pfwd),
-           jwarp.part_layouts_for_pair(mu, ml, pinv, valid, pfwd),
+    _equal(host.part_layouts_for_pair(pinv, valid, pfwd),
+           jwarp.part_layouts_for_pair(mu, ml, pinv, valid, pfwd)[:2],
            "part_layouts_for_pair")
+
+
+@pytest.mark.parametrize("kind", ["host_prepare_device",
+                                  "host_prepare_host", "train_lean"])
+def test_items_carry_tiles_and_no_windows(kind):
+    """Serving and lean training items carry no cut windows, and their
+    paste tiles are the JAX layout function's."""
+    person, clothes = make_person(5, jitter=3.0), make_garment(105)
+    if kind == "train_lean":
+        item = ts.preprocess_person_train_lean(person,
+                                               np.random.RandomState(5))
+        sources = (person, person, person)
+    else:
+        item = host.host_prepare(person, clothes, "upper",
+                                 cond=kind.rsplit("_", 1)[1])
+        sources = (clothes, person, person)   # upper cut, lower cut, paste
+    assert not set(WINDOWS) & set(item)
+    mats = jwarp.host_matrices_for_pair(*(r.keypoints for r in sources),
+                                        return_paste_fwd=True)
+    offsets, fits, _, _ = jwarp.part_layouts_for_pair(*mats)
+    _equal(item["tile_offsets"], offsets, "tile_offsets")
+    assert bool(item["tiles_fit"]) == fits
 
 
 @pytest.mark.parametrize("seed,jitter", PAIRS)

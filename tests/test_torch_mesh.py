@@ -130,7 +130,7 @@ def test_mesh_matches_single_full(model, items):
     single = serving.TryonPipeline(model, mode="upper")
     with serving.TryonPipeline(model, mode="upper", mesh=MESH) as mesh:
         got = mesh.run_batch(forced).numpy()
-        assert not mesh.last_tiled and not mesh.last_cut_windowed
+        assert not mesh.last_tiled
     ref = single.run_batch(forced).numpy()
     assert not single.last_tiled
     _split_budget(got, ref, "full")

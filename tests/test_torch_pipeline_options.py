@@ -102,7 +102,7 @@ def test_cond_host_matches_jax(weights, root):
     ref = jax.jit(lambda b: jserving.assemble_inputs_device(
         jserving.ingest_device(b), "upper", tiled=tiled))(
         {k: jnp.asarray(np.stack([it[k] for it in jitems]))
-         for k in jitems[0] if k not in ("tiles_fit", "cut_fits")})
+         for k in items[0] if k != "tiles_fit"})
     assert sorted(got) == sorted(ref)
     for k in ref:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),

@@ -39,7 +39,7 @@ def batch():
                           "upper", cond="device")
              for s, j in ((0, 3.0), (1, 10.0))]
     return {k: torch.from_numpy(np.stack([it[k] for it in items]))
-            for k in items[0] if k not in ("tiles_fit", "cut_fits")}
+            for k in items[0] if k != "tiles_fit"}
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,7 @@ import jax
 import jax.numpy as jnp
 
 from pasta_tpu import serving as jserving
+from pasta_tpu.data import device_warp as jwarp
 from pasta_tpu.data.preprocess import PersonRecord as JaxPersonRecord
 from pasta_tpu.io.torch_import import import_generator_state, state_dict_to_numpy
 from pasta_tpu.models import Generator as JaxGenerator
@@ -58,7 +59,18 @@ def _items(mode, specs):
 def _stack(items, lib):
     conv = jnp.asarray if lib == "jax" else torch.from_numpy
     return {k: conv(np.stack([it[k] for it in items])) for k in items[0]
-            if k not in ("tiles_fit", "cut_fits")}
+            if k != "tiles_fit"}
+
+
+def _jax_cut_windows(items):
+    """The cut windows of the JAX package's windowed path, which the port's
+    items do not carry, from its own layout function: the [B, 15, 2]
+    offsets and whether every item's cut quads fit."""
+    layouts = [jwarp.part_layouts_for_pair(
+        it["upper_cut_m"], it["lower_cut_m"], it["paste_m_inv"],
+        it["part_valid"]) for it in items]
+    return (jnp.asarray(np.stack([lay[2] for lay in layouts])),
+            all(lay[3] for lay in layouts))
 
 
 @pytest.mark.parametrize("mode,specs,cut_windowed", [
@@ -76,12 +88,15 @@ def test_assemble_matches_jax(mode, specs, cut_windowed):
     items = _items(mode, specs)
     tiled = all(bool(it["tiles_fit"]) for it in items)
     assert tiled == (len(specs) == 1)
-    assert not cut_windowed or all(bool(it["cut_fits"]) for it in items)
+    jbatch = _stack(items, "jax")
+    if cut_windowed:
+        jbatch["cut_window_offsets"], fits = _jax_cut_windows(items)
+        assert fits
     got = serving.assemble_inputs_device(
         serving.ingest_device(_stack(items, "torch")), mode, tiled=tiled)
     ref = jax.jit(lambda b: jserving.assemble_inputs_device(
         jserving.ingest_device(b), mode, tiled=tiled,
-        cut_windowed=cut_windowed))(_stack(items, "jax"))
+        cut_windowed=cut_windowed))(jbatch)
     assert sorted(got) == sorted(ref)
     assert float(got["denorm_upper_mask"].sum()) > 0
     for k in ref:
@@ -121,7 +136,9 @@ def test_pipeline_scope():
     ref = jserving.host_prepare(
         _jax_record(make_person(0, jitter=3.0)),
         _jax_record(make_garment(100, jitter=3.0)), "upper", cond="device")
-    assert sorted(got) == sorted(ref)
+    # the JAX item's cut windows serve only its matmul warps
+    assert sorted(got) == sorted(set(ref) - {"cut_window_offsets",
+                                             "cut_fits"})
     assert "parsing" in got and "pose" not in got
 
 

@@ -213,9 +213,17 @@ def test_options_not_ported_raise(weights):
         serving.TryonPipeline(model, noise_mode="sometimes")
     with pytest.raises(ValueError):
         serving.TryonPipeline(model, cond="cloud")
-    with pytest.raises(ValueError, match="warp_impl"):
-        serving.TryonPipeline(model, warp_impl="nearest")
-    assert serving.TryonPipeline(model, warp_impl="gather").cond == "device"
-    for impl in ("auto", "matmul", "matmul_bf16"):   # ported: no raise
+
+
+@pytest.mark.parametrize("impl", ["auto", "gather", "matmul", "matmul_bf16",
+                                  "nearest"])
+def test_warp_impl_is_the_gather(weights, impl):
+    """The gather is the port's one warp: "auto" and "gather" name it, and
+    every other name (the JAX package's matmul warps included) raises."""
+    model, _ = weights
+    if impl in ("auto", "gather"):
         pipe = serving.TryonPipeline(model, warp_impl=impl)
-        assert pipe.warp_impl == ("gather" if impl == "auto" else impl)
+        assert pipe.warp_impl == "gather" and pipe.cond == "device"
+    else:
+        with pytest.raises(ValueError, match="warp_impl"):
+            serving.TryonPipeline(model, warp_impl=impl)

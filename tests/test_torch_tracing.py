@@ -135,7 +135,7 @@ def test_single_request_tree(model, root, items):
     batches = named["run_batch"]
     assert [b.attrs["size"] for b in batches] == [2, 1]
     assert all(b.parent is None and b.attrs["tiled"] == pipe.last_tiled
-               and "cut_windowed" in b.attrs for b in batches)
+               for b in batches)
     assert batches[0].attrs["batch"] != batches[1].attrs["batch"]
     for b in batches:
         kids = sorted((s for s in spans if s.parent == b.id),

@@ -34,6 +34,14 @@ from pasta_tpu_torch.data.synthetic import write_dataset_root
 
 N = 4
 SEED = 60
+# the JAX lean items' fields of the windowed cut, which serve only its
+# matmul warps and which the port's items do not carry
+JAX_WINDOWS = ("cut_window_offsets", "cut_fits")
+
+
+def _without_windows(item):
+    """A JAX lean item without its JAX_WINDOWS."""
+    return {k: v for k, v in item.items() if k not in JAX_WINDOWS}
 
 
 @pytest.fixture(autouse=True)
@@ -184,7 +192,7 @@ def test_preprocess_person_train_lean_equals_original(root, seed):
     rec, jrec = _load(path, names[seed % N], pose_raster="device")
     got = ts.preprocess_person_train_lean(rec, np.random.RandomState(seed))
     ref = jts.preprocess_person_train_lean(jrec, np.random.RandomState(seed))
-    _equal(got, ref, "preprocess_person_train_lean")
+    _equal(got, _without_windows(ref), "preprocess_person_train_lean")
     with pytest.raises(AssertionError, match="pose_raster"):
         ts.preprocess_person_train_lean(_load(path, names[0])[0],
                                         np.random.RandomState(0))
@@ -218,7 +226,8 @@ def test_dataset_items_equal_original(datasets):
             _equal(ds[i], jds[i], f"dataset[{kind}][{i}]")
     ds, jds = datasets["lean"]
     for i in (1, 3):
-        _equal(ds.lean_item(i), jds.lean_item(i), f"lean_item[{i}]")
+        _equal(ds.lean_item(i), _without_windows(jds.lean_item(i)),
+               f"lean_item[{i}]")
     with pytest.raises(AssertionError):
         ts.TryonTrainDataset(datasets["host"][0].root, resolution=64,
                              loader_impl="device")
@@ -247,9 +256,8 @@ def test_batch_stackers_equal_original(datasets):
     lean, jlean = datasets["lean"]
     got = ts.batch_to_lean_inputs([lean.lean_item(i) for i in range(2)])
     ref = jts.batch_to_lean_inputs([jlean.lean_item(i) for i in range(2)])
-    _equal(got[0], ref[0], "batch_to_lean_inputs")
-    assert got[1:] == ref[1:]
-    assert isinstance(got[1], bool) and isinstance(got[2], bool)
+    _equal(got[0], _without_windows(ref[0]), "batch_to_lean_inputs")
+    assert len(got) == 2 and got[1] == ref[1] and isinstance(got[1], bool)
 
 
 @pytest.mark.parametrize("kind", ["host", "small"])
@@ -305,7 +313,7 @@ def test_assemble_train_batch_lean_vs_jax(root, branch, tiled):
         if i == 1:
             rec = pp.flip_person(rec)
         items.append(ts.preprocess_person_train_lean(rec, rng))
-    batch, fits, windowed = ts.batch_to_lean_inputs(items)
+    batch, fits = ts.batch_to_lean_inputs(items)
     assert fits, "the synthetic figures fit the paste tiles"
     got = ts.assemble_train_batch_lean(
         {k: torch.from_numpy(v) for k, v in batch.items()}, tiled=tiled)
@@ -351,7 +359,7 @@ def test_lean_against_host_loader_with_equal_draws(root):
     host_out = {k: v.numpy() for k, v in ts.assemble_train_batch({
         k: torch.from_numpy(v)
         for k, v in ts.batch_to_raw_inputs([host_item]).items()}).items()}
-    batch, tiled, _ = ts.batch_to_lean_inputs([lean_item])
+    batch, tiled = ts.batch_to_lean_inputs([lean_item])
     lean_out = {k: v.numpy() for k, v in ts.assemble_train_batch_lean(
         {k: torch.from_numpy(v) for k, v in batch.items()},
         tiled=tiled).items()}
