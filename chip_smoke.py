@@ -15,9 +15,10 @@ trace, the patch D and the legacy layers, and a serving batch split over devices
 synthetic inputs, in phases:
 
   1. device      -- fails without CUDA; prints the card's name, power limit
-  2. build       -- compiles csrc/conv3x3.cu (K1), csrc/shift.cu (K2, K3)
-                    and csrc/upfirdn2d.cu (the FIR resampling kernel) from
-                    the sources, in parallel; registers and spills
+  2. build       -- compiles csrc/conv3x3.cu (K1), csrc/shift.cu (K2, K3),
+                    csrc/upfirdn2d.cu (the FIR resampling kernel) and
+                    csrc/spade_norm.cu (the SPADE pair) from the sources,
+                    in parallel; registers and spills
                     (none allowed in K1's kernels), the fp32 kernel's blocks
                     per SM, the bf16 kernel's tile waste at four widths
   3. kernel      -- K1 against its plain version at the serving shapes
@@ -32,12 +33,27 @@ synthetic inputs, in phases:
                     double backward (fp32 1e-5, bf16 2^-7 of the scale);
                     each call's time beside its byte bound, the plain
                     version's and cuDNN's grouped conv alone
+ 3c. kernel-spade -- the SPADE pair (csrc/spade_norm.cu): one fp32 serving
+                    batch of 8 (published widths, run_batch on one card)
+                    launches it 21 times in its eager run and takes the
+                    plain chain never, and two replays of its CUDA graph
+                    trace 21 of its kernels each; each of its calls,
+                    and [8,512,512,64] with an NHWC gb and [8,256,256,128]
+                    with an NCHW-backed gb where the batch makes no such
+                    call, forward, dx and dgb, against
+                    spade_norm_act_plain's autograd
+                    (fp32: y and dgb 1e-5, dx 1e-4 of the scale, the
+                    gradients away from the relu / clamp kinks), twice
+                    bit for bit; forward and backward timed in turns with
+                    the plain chain, beside their byte bound
   4. main        -- run_batch on tiled and full-path batches; K1's and the
                     FIR kernel's kernels in a CUDA trace of those batches
                     (CUDA graph replays) must number their calls per batch
                     (26 and 28), and the FIR counters from 0 before the
                     first batch 28 launches for each eagerly run batch
-                    key, none plain
+                    key, none plain; the SPADE counters from 0 (the bf16
+                    blocks keep the chain): no launch, 9 plain calls for
+                    each eagerly run batch key, none of its kernels traced
   5. check       -- a small fp32 serving run on the card against the CPU
   6. kernel-train -- K2 and K3 (from the positions q) against their plain
                     versions at the training shapes (bf16) and at ragged
@@ -58,7 +74,10 @@ synthetic inputs, in phases:
                     K1 forward / K1 dX / K2 / K3 launch counts, the FIR
                     kernel's from 0 before the warm-up step (each regular
                     step the warm-up's, more gradient launches in the R1
-                    step, R1's double backward; none plain); s/step,
+                    step, R1's double backward; none plain), the SPADE
+                    pair's likewise (G's forwards 21 launches each, its
+                    backward 27; the R1 step a regular step's), the dy
+                    and gb layouts G's backward hands the pair; s/step,
                     sec/kimg, peak memory
   8. train-check -- one fp32 step's per-phase losses and gradients at the
                     narrow 64px config (no noise), card against CPU: at
@@ -176,6 +195,7 @@ synthetic inputs, in phases:
                     (printed)
 
 Run from the repository root:  python3 chip_smoke.py
+(`--only spade`: phases 1, 2, 3c, 4 and 7 alone; `--only mesh`: phase 17.)
 The last line of standard output is {"ok": true, "device": {...}}; the one
 before it the card's name and power limit, and before that the kernels'
 summary {"kernels": [...]}: per kernel its launches on the main paths, the
@@ -257,6 +277,28 @@ FIR_D_CALLS = ((1, (2, 2, 2, 2)), (2, (1, 1, 1, 1)))     # (down, padding)
 # same rounded inputs and taps
 FIR_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 FIR_ITERS = 20
+
+# The SPADE pair in one fp32 serving forward: each of the three SPADE
+# res-blocks takes the moments of its x once for spade_skip and spade0 and
+# once for spade1's x (two launches each: the blocks' partials, their
+# merge) and runs three applies (one each): 21 launches, 9 calls. A
+# backward launches 3 a call, 27 for G's.
+SPADE_PER_BATCH = 21
+SPADE_CALLS = 9
+SPADE_BWD = 27
+SPADE_KERNEL = "spade_norm"
+# the calls the kernels were designed for, checked and timed whether or not
+# a serving batch makes them: texture_b512's 64 channels with K1's NHWC gb,
+# spade_b256's 128 with an NCHW-backed gb (a permuted F.conv2d output)
+SPADE_SHAPES = (((BATCH, 512, 512, 64), "nhwc"),
+                ((BATCH, 256, 256, 128), "nchw"))
+# fp32, of the plain chain's scale (the card tests' tolerances): y and dgb
+# 1e-5, the moments summed in another order; dx 1e-4, since an element
+# next to a kink moves its (n, c)'s two sums. The gradients are compared
+# away from the relu and clamp kinks (under 1e-3 of the elements), where
+# the routes may round to either side.
+SPADE_TOL, SPADE_DX_TOL = 1e-5, 1e-4
+SPADE_ITERS = 20
 
 # The training options (phase 10), each on the fashion preset at batch 4.
 # A: every option that changes the step's work but the shared fakes; B: the
@@ -394,12 +436,13 @@ def _print_ptxas(tag, log):
                   f"{name} spills: {line.strip()}")
 
 
-def phase_build(k1, shift, fir):
+def phase_build(k1, shift, fir, sn):
     """The sources compile at once, one nvcc each."""
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         jobs = {"K1 csrc/conv3x3.cu": pool.submit(k1.build),
                 "K2/K3 csrc/shift.cu": pool.submit(shift.build),
-                "FIR csrc/upfirdn2d.cu": pool.submit(fir.build)}
+                "FIR csrc/upfirdn2d.cu": pool.submit(fir.build),
+                "SPADE csrc/spade_norm.cu": pool.submit(sn.build)}
         for tag, job in jobs.items():
             _, seconds, log = job.result()
             print(f"[build] {tag} -> sm_90a in {seconds:.2f} s", flush=True)
@@ -661,6 +704,215 @@ def phase_kernel_fir(fir, batch):
     return rows, serving
 
 
+def _spade_counts(sn):
+    """The SPADE pair's (launches, gradient launches, plain calls)."""
+    f = sn.spade_norm_act
+    return f.launches, f.launches_bwd, f.launches_plain
+
+
+def _spade_reset(sn):
+    f = sn.spade_norm_act
+    f.launches = f.launches_bwd = f.launches_plain = 0
+
+
+def _spade_layout(gb_strides):
+    """"nhwc" where gb's channels are contiguous (read as vectors), else
+    "nchw" (W contiguous: staged through shared memory)."""
+    return "nhwc" if gb_strides[3] == 1 else "nchw"
+
+
+def _spade_serving_calls(sn, batch):
+    """(x shape, gb layout, gain, clamp) of every SPADE call of one fp32
+    serving batch at `batch` (the fashion generator at published widths,
+    run_batch on one card), with the counters at 0 just before it: its
+    eager run SPADE_PER_BATCH launches, none for a gradient, none plain,
+    its capture none counted; then two replays of its CUDA graph, in a
+    trace, SPADE_PER_BATCH of the pair's kernels each and no count."""
+    from pasta_tpu_torch.models import Generator
+    from pasta_tpu_torch.serving import TryonPipeline
+
+    model = Generator(seed=0).eval().to("cuda")
+    pipe = TryonPipeline(model, mode="upper")
+    items = _items(pipe, range(batch), 3.0)
+    seen, apply = [], sn._apply
+
+    def record(x, gb, mean, rstd, gain, clamp):
+        if not sn._capturing(x):
+            seen.append((tuple(x.shape), _spade_layout(gb.stride()), gain,
+                         clamp))
+        return apply(x, gb, mean, rstd, gain, clamp)
+
+    _spade_reset(sn)
+    sn._apply = record
+    try:
+        pipe.run_batch(items)            # the eager run, then the capture
+        torch.cuda.synchronize()
+    finally:
+        sn._apply = apply
+    counts = _spade_counts(sn)
+    check(counts == (SPADE_PER_BATCH, 0, 0) and len(seen) == SPADE_CALLS,
+          f"fp32 serving batch of {batch}: SPADE launches, gradient "
+          f"launches, plain {counts}, calls {len(seen)}; want "
+          f"({SPADE_PER_BATCH}, 0, 0), {SPADE_CALLS} calls")
+    with _k1_traced("cuda") as traced:
+        for _ in range(2):
+            pipe.run_batch(items)
+    check(traced["spade"] == 2 * SPADE_PER_BATCH
+          and _spade_counts(sn) == counts,
+          f"two replays: SPADE kernels traced {traced['spade']} != 2 x "
+          f"{SPADE_PER_BATCH}, or counted {_spade_counts(sn)}")
+    print(f"[kernel-spade] fp32 serving batch of {batch}: eager run "
+          f"{counts[0]} launches, 0 plain, {len(seen)} calls (x shape, gb "
+          f"layout: {dict(collections.Counter(c[:2] for c in seen))}); two "
+          f"graph replays: {traced['spade']} of its kernels traced, none "
+          f"counted", flush=True)
+    del model, pipe
+    torch.cuda.empty_cache()
+    return seen
+
+
+def _spade_inputs(shape, layout, g):
+    """x, gb (NHWC-contiguous, or the permuted view of an NCHW tensor) and
+    dy on the card."""
+    n, h, w, c = shape
+    x = torch.randn(shape, generator=g, device="cuda") * 3 + 1
+    if layout == "nhwc":
+        gb = torch.randn((n, h, w, 2 * c), generator=g, device="cuda")
+    else:
+        gb = torch.randn((n, 2 * c, h, w), generator=g,
+                         device="cuda").permute(0, 2, 3, 1)
+    return x, gb * 0.5, torch.randn(shape, generator=g, device="cuda")
+
+
+def _spade_kinks(x, gb, gain, clamp):
+    """Where the affine's output or the scaled relu lies within 1e-4 of a
+    kink (relu's 0, the clamp), from float64 moments."""
+    c = x.shape[-1]
+    x64 = x.double()
+    mean = x64.mean(dim=(1, 2), keepdim=True)
+    var = (x64 - mean).square().mean(dim=(1, 2), keepdim=True)
+    gb64 = gb.double()
+    z = ((x64 - mean) * torch.rsqrt(var + 1e-5) * (1 + gb64[..., :c])
+         + gb64[..., c:])
+    del x64, gb64
+    u = z.clamp_min(0) * gain
+    near = z.abs() < 1e-4
+    if clamp is not None:
+        near |= (u - clamp).abs() < 1e-4 * clamp
+    return near
+
+
+def _spade_check(sn, x, gb, dy, gain, clamp):
+    """The largest error, of the plain chain's scale, of the kernels' y, dx
+    and dgb against autograd through spade_norm_act_plain, each held to its
+    tolerance; two kernel runs bit for bit; 3 forward and 3 gradient
+    launches, none plain."""
+
+    def run(fn):
+        xa = x.detach().requires_grad_(True)
+        gba = gb.detach().requires_grad_(True)     # keeps gb's strides
+        y = fn(xa, gba, gain, clamp)
+        y.backward(dy)
+        return y.detach(), xa.grad, gba.grad
+
+    before = _spade_counts(sn)
+    got = run(sn.spade_norm_act)
+    counts = tuple(a - b for a, b in zip(_spade_counts(sn), before))
+    again = run(sn.spade_norm_act)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"SPADE {list(x.shape)}: two runs differ")
+    del again
+    want = run(sn.spade_norm_act_plain)
+    kinks = _spade_kinks(x, gb, gain, clamp)
+    share = kinks.float().mean().item()
+    check(share < 1e-3, f"SPADE {list(x.shape)}: {share:.3g} of the "
+          f"elements at a kink")
+    errs = []
+    for what, a, b, keep, tol in (
+            ("y", got[0], want[0], None, SPADE_TOL),
+            ("dgb", got[2], want[2], ~torch.cat([kinks, kinks], dim=-1),
+             SPADE_TOL),
+            ("dx", got[1], want[1], ~kinks, SPADE_DX_TOL)):
+        check(a.shape == b.shape and a.dtype == torch.float32,
+              f"SPADE {what} {list(x.shape)}: {a.dtype} {tuple(a.shape)}")
+        d = (a - b).abs()
+        if keep is not None:
+            d = d[keep]
+        e = d.max().item() / b.abs().max().item()
+        check(e <= tol, f"SPADE {what} {list(x.shape)}: error {e:.3g} of "
+              f"the scale > {tol:.3g}")
+        errs.append(e)
+    check(counts == (3, 3, 0), f"SPADE {list(x.shape)}: launches, gradient "
+          f"launches, plain {counts} != (3, 3, 0)")
+    return max(errs)
+
+
+def _spade_times(sn, x, gb, dy, gain, clamp):
+    """(kernels, plain) ms of the forward (moments and apply, no grad) and
+    of the backward (the kernels' three launches; autograd through the
+    plain chain), each pair in turns."""
+    with torch.no_grad():
+        fwd = turns(lambda: sn.spade_norm_act_plain(x, gb, gain, clamp),
+                    lambda: sn.spade_norm_act(x, gb, gain, clamp),
+                    SPADE_ITERS, True)
+        mean, rstd = sn._stats(x)
+    gbr, cl = sn._readable(gb), float("inf") if clamp is None else clamp
+    xp = x.detach().requires_grad_(True)
+    gbp = gb.detach().requires_grad_(True)
+    yp = sn.spade_norm_act_plain(xp, gbp, gain, clamp)
+    bwd = turns(lambda: torch.autograd.grad(yp, (xp, gbp), dy,
+                                            retain_graph=True),
+                lambda: sn._backward(dy, x, gbr, mean, rstd, gain, cl),
+                SPADE_ITERS, True)
+    return fwd, bwd
+
+
+def phase_kernel_spade(sn, batch):
+    """The SPADE pair at every call of an fp32 serving batch at `batch`,
+    forward and gradients against the plain chain, timed. Returns (rows
+    at the batch's calls: forward, then backward; the eager batch's
+    launches; its replays' kernels traced)."""
+    calls = _spade_serving_calls(sn, batch)
+    cases = collections.Counter(calls)
+    for shape, layout in SPADE_SHAPES:     # if not a serving call: x0
+        if not any(c[:2] == (shape, layout) for c in calls):
+            gain, clamp = next(c[2:] for c in calls if c[0] == shape)
+            cases[(shape, layout, gain, clamp)] = 0
+    g = torch.Generator(device="cuda").manual_seed(0)
+    fwd_rows, bwd_rows = [], []
+    for (shape, layout, gain, clamp), k in sorted(cases.items(), key=str):
+        x, gb, dy = _spade_inputs(shape, layout, g)
+        err = _spade_check(sn, x, gb, dy, gain, clamp)
+        (t_f, t_fp), (t_b, t_bp) = _spade_times(sn, x, gb, dy, gain, clamp)
+        # x, gb in and y out once: 16 B an element; the backward's dy, x,
+        # gb in and dx, dgb out once: 28 B
+        b_f = x.numel() * 16 / HBM_BYTES_PER_S * 1e3
+        b_b = x.numel() * 28 / HBM_BYTES_PER_S * 1e3
+        print(f"[kernel-spade] {list(shape)} gb {layout} gain {gain:.4g} "
+              f"clamp {clamp} x{k} | error {err:.3g} of the scale | forward "
+              f"{t_f:.4f} ms, bound {b_f:.4f} ms ({100 * b_f / t_f:.1f}%), "
+              f"plain {t_fp:.4f} ms | backward {t_b:.4f} ms, bound "
+              f"{b_b:.4f} ms ({100 * b_b / t_b:.1f}%), plain {t_bp:.4f} ms",
+              flush=True)
+        fwd_rows.append(row(err, k * t_f, k * t_fp, k * b_f, "bytes",
+                            dtype=torch.float32))
+        bwd_rows.append(row(err, k * t_b, k * t_bp, k * b_b, "bytes",
+                            dtype=torch.float32))
+        del x, gb, dy
+        torch.cuda.empty_cache()
+    sums = {k: sum(r[k] for r in fwd_rows)
+            for k in ("ms", "bound_ms", "plain_ms")}
+    # the rows weigh each case by its calls in a batch; each call timed with its own moments; the batch shares one moments
+    # pass between spade_skip and spade0 in each of its three blocks
+    print(f"[kernel-spade] serving forward at batch {batch}: "
+          f"{SPADE_CALLS} calls, {sum(k > 0 for k in cases.values())} "
+          f"distinct | kernels "
+          f"{sums['ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms "
+          f"({100 * sums['bound_ms'] / sums['ms']:.1f}%) | plain "
+          f"{sums['plain_ms']:.4f} ms", flush=True)
+    return fwd_rows + bwd_rows, SPADE_PER_BATCH, 2 * SPADE_PER_BATCH
+
+
 def _items(pipe, seeds, jitter):
     from pasta_tpu_torch.data.synthetic import make_garment, make_person
 
@@ -669,9 +921,9 @@ def _items(pipe, seeds, jitter):
             for s in seeds]
 
 
-def phase_main(fir, batch, n_timed):
-    """Returns K1's kernels traced and the FIR kernel's (counted launches,
-    kernels traced)."""
+def phase_main(fir, sn, batch, n_timed):
+    """Returns K1's kernels traced, the FIR kernel's (counted launches,
+    kernels traced) and the SPADE pair's."""
     from pasta_tpu_torch.models import Generator
     from pasta_tpu_torch.serving import TryonPipeline
 
@@ -693,6 +945,7 @@ def phase_main(fir, batch, n_timed):
           f"{2 * batch / (t2 - t1):.2f} pairs/s (1 process)", flush=True)
 
     _fir_reset(fir)
+    _spade_reset(sn)
     out = pipe.run_batch(tiled_items)            # warm-up (first launches)
     torch.cuda.synchronize()
 
@@ -710,6 +963,7 @@ def phase_main(fir, batch, n_timed):
         t_full = time.perf_counter() - t0
     launches = seen["launches"]
     fir_counts = _fir_counts(fir)
+    spade_counts = _spade_counts(sn)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     check(tiled_path and not pipe.last_tiled, "path selection")
@@ -727,18 +981,26 @@ def phase_main(fir, batch, n_timed):
     check(fir_counts == (2 * FIR_PER_BATCH, 0, 0),
           f"FIR launches, gradient launches, plain {fir_counts} != "
           f"({2 * FIR_PER_BATCH}, 0, 0)")
+    # num_bf16_res=3 puts the SPADE res-blocks (256 and 512) in bf16, which
+    # keeps the plain chain: 9 calls for each eager batch, no kernel
+    check(spade_counts == (0, 0, 2 * SPADE_CALLS) and seen["spade"] == 0,
+          f"SPADE launches, gradient launches, plain {spade_counts}, "
+          f"kernels traced {seen['spade']}; want (0, 0, {2 * SPADE_CALLS}), "
+          f"0 (bf16 blocks)")
     print(f"[main] run_batch x{n_timed} tiled: {batch * n_timed / t_tiled:.2f}"
           f" img/s ({1e3 * t_tiled / n_timed:.1f} ms/batch of {batch}) | full"
           f" path x1: {batch / t_full:.2f} img/s | K1 kernels traced "
           f"{launches} ="
           f" {K1_PER_BATCH} x {n_batches} batches | FIR kernels traced "
           f"{seen['fir']} = {FIR_PER_BATCH} x {n_batches}, launches counted "
-          f"{fir_counts[0]} (2 eager batches), plain {fir_counts[2]} | peak "
+          f"{fir_counts[0]} (2 eager batches), plain {fir_counts[2]} | "
+          f"SPADE (bf16 blocks) launches {spade_counts[0]}, plain "
+          f"{spade_counts[2]}, kernels traced {seen['spade']} | peak "
           f"{peak:.2f} GiB | out range [{out.min().item():.3f}, "
           f"{out.max().item():.3f}]", flush=True)
     del model, pipe, out, out_full
     torch.cuda.empty_cache()
-    return launches, (fir_counts[0], seen["fir"])
+    return launches, (fir_counts[0], seen["fir"]), spade_counts
 
 
 def phase_check():
@@ -1042,11 +1304,11 @@ def _flat_params(module):
                       for p in module.parameters()])
 
 
-def phase_train(k1, fir):
+def phase_train(k1, fir, sn):
     """The fashion preset's training step at batch 4 on the card. Returns
-    K1 / K2 / K3's launches, K1's fp32 ones, the host s/step and the FIR
-    kernel's (launches, gradient launches) of a regular step and of the R1
-    step."""
+    K1 / K2 / K3's launches, K1's fp32 ones, the host s/step, and the FIR
+    kernel's and the SPADE pair's (launches, gradient launches) of a
+    regular step and of the R1 step."""
     from pasta_tpu_torch.cli import bench_train
     from pasta_tpu_torch.train.config import fashion_config
     from pasta_tpu_torch.train.steps import fetch_metrics
@@ -1063,6 +1325,16 @@ def phase_train(k1, fir):
     torch.cuda.reset_peak_memory_stats()
     bench_train.reset_kernel_counts()
     _fir_reset(fir)
+    _spade_reset(sn)
+    # the layouts of the dy and gb that G's backward hands the SPADE pair:
+    # (x shape, dy's, gb's: "nhwc" where the channels are contiguous, else
+    # "nchw") -> calls, in the warm-up step
+    dy_layouts, backward = collections.Counter(), sn._backward
+
+    def record_dy(dy, x, gb, *args):
+        dy_layouts[(tuple(x.shape), _spade_layout(dy.stride()),
+                    _spade_layout(gb.stride()))] += 1
+        return backward(dy, x, gb, *args)
 
     def stepped(p0, metrics):
         """Finite metrics; ada_p moved by exactly one controller step, or
@@ -1077,21 +1349,30 @@ def phase_train(k1, fir):
         return p1
 
     t0 = time.perf_counter()
-    _, metrics = step(state, batch, gen)
-    torch.cuda.synchronize()
+    sn._backward = record_dy
+    try:
+        _, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+    finally:
+        sn._backward = backward
     t_warm = time.perf_counter() - t0
     fir_step = _fir_counts(fir)
+    spade_step = _spade_counts(sn)
     p = stepped(cfg.augment_p_init, fetch_metrics([metrics])[0])
     host, dev, steps = bench_train.timed_steps(step, state, batch, gen,
                                                N_TRAIN_TIMED)
     for metrics in steps:
         p = stepped(p, metrics)
     fir_timed = tuple(a - b for a, b in zip(_fir_counts(fir), fir_step))
+    spade_timed = tuple(a - b for a, b in zip(_spade_counts(sn),
+                                              spade_step))
     host_r1, dev_r1, (metrics_r1,) = bench_train.timed_steps(
         step, state, batch, gen, 1, do_r1=True)
     stepped(p, metrics_r1)
     fir_r1 = tuple(a - b - c for a, b, c in zip(_fir_counts(fir), fir_step,
                                                  fir_timed))
+    spade_r1 = tuple(a - b - c for a, b, c in zip(
+        _spade_counts(sn), spade_step, spade_timed))
     counts = bench_train.kernel_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     after = [_flat_params(m) for m in (state.g, state.d, state.dp)]
@@ -1118,6 +1399,23 @@ def phase_train(k1, fir):
           and fir_r1[2] == 0,
           f"FIR launches, gradient launches, plain of the R1 step {fir_r1} "
           f"against a regular step's {fir_step}")
+    # G's forwards (Gmain's, and the D phases' no-grad draw) 21 launches
+    # each, its backward 27, none plain; R1 never reaches G
+    check(spade_step[0] > 0 and spade_step[0] % SPADE_PER_BATCH == 0
+          and spade_step[1] > 0 and spade_step[1] % SPADE_BWD == 0
+          and spade_step[2] == 0 and spade_r1 == spade_step
+          and spade_timed == tuple(N_TRAIN_TIMED * n for n in spade_step),
+          f"SPADE launches, gradient launches, plain of the warm-up step "
+          f"{spade_step}, of {N_TRAIN_TIMED} regular steps {spade_timed}, "
+          f"of the R1 step {spade_r1}")
+    check(sum(dy_layouts.values()) * 3 == spade_step[1],
+          f"SPADE backward calls {dict(dy_layouts)} against "
+          f"{spade_step[1]} gradient launches")
+    print(f"[train] SPADE pair a step: launches {spade_step[0]}, gradient "
+          f"launches {spade_step[1]}, plain 0, the R1 step the same | "
+          f"G's backward, x shape dy gb layouts: "
+          f"{ {' '.join(map(str, k)): v for k, v in dy_layouts.items()} }",
+          flush=True)
     print(f"[train] warm-up {t_warm:.2f} s | regular x{N_TRAIN_TIMED}: "
           f"{host:.4f} s/step host, {dev:.4f} s/step CUDA events, "
           f"{host * 1000 / cfg.batch_size:.1f} sec/kimg | R1 step "
@@ -1132,7 +1430,8 @@ def phase_train(k1, fir):
           flush=True)
     del state, step, batch, before, after
     torch.cuda.empty_cache()
-    return counts, n_fp32, host, (fir_step[:2], fir_r1[:2])
+    return (counts, n_fp32, host, (fir_step[:2], fir_r1[:2]),
+            (spade_step[:2], spade_r1[:2]))
 
 
 @contextlib.contextmanager
@@ -1221,9 +1520,9 @@ def _k1_traced(dev):
     """K1's kernels that ran on the cards inside the block, read from a
     torch.profiler (CUPTI) trace of it, so those of a replayed CUDA graph
     too, which K1's launch counters do not see: the dict yielded gets
-    `launches` and `fp32` at the block's end (0 and 0 off a card), and
-    `fir`, the FIR resampling kernel's."""
-    seen = {"launches": 0, "fp32": 0, "fir": 0}
+    `launches` and `fp32` at the block's end (0 and 0 off a card), `fir`,
+    the FIR resampling kernel's, and `spade`, the SPADE pair's."""
+    seen = {"launches": 0, "fp32": 0, "fir": 0, "spade": 0}
     if torch.device(dev).type != "cuda":
         yield seen
         return
@@ -1237,6 +1536,7 @@ def _k1_traced(dev):
     seen["fp32"] = sum(K1_KERNELS[0] in n for n in names)
     seen["launches"] = seen["fp32"] + sum(K1_KERNELS[1] in n for n in names)
     seen["fir"] = sum(FIR_KERNEL in n for n in names)
+    seen["spade"] = sum(SPADE_KERNEL in n for n in names)
 
 
 def _one_step(k1, state, step, batch, gen, dev, **kw):
@@ -3343,10 +3643,11 @@ def main(argv=None):
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["mesh"],
-                        help="build the kernels and run this phase alone "
+    parser.add_argument("--only", choices=["mesh", "spade"],
+                        help="build the kernels and run these phases alone "
                         "(mesh: phase 17, its part (e) on every card "
-                        "there is, up to four)")
+                        "there is, up to four; spade: phases 3c, 4 and 7, "
+                        "the SPADE pair's)")
     args = parser.parse_args(argv)
     smi = phase_device()
     from pasta_tpu_torch.ops._build import pin_fp32_numerics
@@ -3357,18 +3658,34 @@ def main(argv=None):
 
     # the module (the package's attribute of that name is the function)
     fir = importlib.import_module("pasta_tpu_torch.ops.upfirdn2d")
-    phase_build(k1, shift, fir)
+    sn = importlib.import_module("pasta_tpu_torch.ops.spade_norm")
+    phase_build(k1, shift, fir, sn)
     if args.only == "mesh":
         print(json.dumps({"phase": "mesh",
                           "launches_mesh": phase_mesh(k1)}))
         print(smi)
         return
+    if args.only == "spade":
+        spade_rows, spade_eager, spade_traced = phase_kernel_spade(sn, BATCH)
+        phase_main(fir, sn, BATCH, N_TIMED)
+        spade_train = phase_train(k1, fir, sn)[4]
+        print(json.dumps({"phase": "spade", "launches_serving": spade_eager,
+                          "traced_serving": spade_traced,
+                          "launches_train_step": spade_train[0],
+                          "ms": sum(r["ms"] for r in spade_rows),
+                          "bound_ms": sum(r["bound_ms"] for r in spade_rows),
+                          "plain_ms": sum(r["plain_ms"]
+                                          for r in spade_rows)}))
+        print(smi)
+        return
     rows = phase_kernel(k1, BATCH)
     fir_rows, fir_serving = phase_kernel_fir(fir, BATCH)
-    launches, fir_main = phase_main(fir, BATCH, N_TIMED)
+    spade_rows, spade_eager, spade_traced = phase_kernel_spade(sn, BATCH)
+    launches, fir_main, spade_main = phase_main(fir, sn, BATCH, N_TIMED)
     phase_check()
     train_rows = phase_kernel_train(k1, shift)
-    counts, n_fp32, step_s, fir_train = phase_train(k1, fir)
+    counts, n_fp32, step_s, fir_train, spade_train = phase_train(k1, fir,
+                                                                 sn)
     phase_train_check(shift)
     run_counts, opt_run = phase_train_run(k1, step_s)
     opt_counts, opt_shapes = phase_train_options(k1, shift)
@@ -3476,6 +3793,28 @@ def main(argv=None):
               bound_ms_serving_batch=total(fir_serving, "bound_ms"),
               plain_ms_serving_batch=total(fir_serving, "plain_ms"),
               library_ms_serving_batch=total(fir_serving, "library_ms")),
+        # launches: phase 3c's fp32 serving batch run eagerly, phase 4's
+        # (bf16 blocks: none, its calls plain), the training steps' (phase
+        # 7); the rows: phase 3c's calls of one batch, forward then
+        # backward
+        entry("spade_norm_act", "pasta_tpu_torch/csrc/spade_norm.cu",
+              "none (pasta_tpu/nn/synthesis.py: XLA fuses the chain)",
+              spade_eager + spade_main[0]
+              + (1 + N_TRAIN_TIMED) * sum(spade_train[0])
+              + sum(spade_train[1]), spade_rows, 0.0,
+              launches_serving=spade_eager, traced_serving=spade_traced,
+              launches_serving_bf16=spade_main[0],
+              launches_train_step=spade_train[0][0],
+              launches_train_step_bwd=spade_train[0][1],
+              launches_r1_step=spade_train[1][0],
+              launches_r1_step_bwd=spade_train[1][1],
+              launches_plain=spade_main[2],
+              ms_serving_batch=total(spade_rows[:len(spade_rows) // 2],
+                                     "ms"),
+              bound_ms_serving_batch=total(
+                  spade_rows[:len(spade_rows) // 2], "bound_ms"),
+              plain_ms_serving_batch=total(
+                  spade_rows[:len(spade_rows) // 2], "plain_ms")),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

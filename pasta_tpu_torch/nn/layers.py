@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from ..ops import bias_act, conv2d_resample, setup_filter
 from ..ops.bias_act import activation_funcs
+from ..ops.spade_norm import instance_norm_2d
 from ..train.dist import all_gather_batch, rank
 
 
@@ -63,15 +64,6 @@ def register_filter(module, taps):
 def normalize_2nd_moment(x, dim=-1, eps=1e-8):
     """Pixel-norm over `dim`."""
     return x * torch.rsqrt(x.square().mean(dim=dim, keepdim=True) + eps)
-
-
-def instance_norm_2d(x, eps=1e-5):
-    """Per-sample, per-channel normalization over H, W of an NHWC tensor
-    (biased variance, fp32 moments, output in the input dtype)."""
-    x32 = x.float()
-    mean = x32.mean(dim=(1, 2), keepdim=True)
-    var = (x32 - mean).square().mean(dim=(1, 2), keepdim=True)
-    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 class FullyConnectedLayer(nn.Module):

@@ -14,9 +14,9 @@ import torch.nn.functional as F
 
 from ..ops import bias_act, conv2d_resample, modulated_conv2d, upsample2d
 from ..ops.bias_act import activation_funcs
+from ..ops.spade_norm import spade_norm, spade_norm_act, spade_norm_stats
 from .layers import (Conv2dLayer, FullyConnectedLayer, ResBlock, _const,
-                     _normal, add_buffer, add_param, instance_norm_2d,
-                     register_filter)
+                     _normal, add_buffer, add_param, register_filter)
 
 
 def _hwio(w):
@@ -143,6 +143,19 @@ class SpadeConv2dLayer(nn.Module):
             self.register_parameter("bias", None)
         register_filter(self, resample_filter)
 
+    def act_args(self, gain=1.0):
+        """(gain, clamp) of this layer's pre-activation at `gain`, for a
+        caller that applies it fused, as `spade_norm_act` does, and then
+        calls forward with no_act. The fused pre-activation is a relu with
+        no bias: a layer with another activation or a bias is refused."""
+        if self.activation != "relu" or self.bias is not None:
+            raise ValueError(
+                f"spade_norm_act fuses a relu pre-activation with no bias, "
+                f"not {self.activation} with bias {self.bias is not None}")
+        act_clamp = (self.conv_clamp * gain
+                     if self.conv_clamp is not None else None)
+        return activation_funcs["relu"].def_gain * gain, act_clamp
+
     def forward(self, x, gain=1.0, no_act=False):
         if not no_act:
             act_gain = activation_funcs[self.activation].def_gain * gain
@@ -167,7 +180,10 @@ class _ConvWeight(nn.Module):
 
 class SpadeNormBlock(nn.Module):
     """SPADE: InstanceNorm(x) * (1 + gamma(feat)) + beta(feat); gamma and
-    beta run as one C -> 2C conv and are split."""
+    beta run as one C -> 2C conv. With `act` = (gain, clamp), the relu
+    pre-activation of the conv that takes the result is applied too, fused
+    with the normalisation (`ops/spade_norm.py`); `stats` are moments of x
+    shared with another block's call on the same x."""
 
     def __init__(self, in_channels, norm_channels):
         super().__init__()
@@ -178,15 +194,15 @@ class SpadeNormBlock(nn.Module):
         self.conv_beta = _ConvWeight((c, c, 3, 3))
         self.gain = 1.0 / math.sqrt(c * 3 * 3)
 
-    def forward(self, x, denorm_feats):
-        normalized = instance_norm_2d(x)
+    def forward(self, x, denorm_feats, act=None, stats=None):
         actv = F.relu(self.conv_mlp(denorm_feats, no_act=True))
         w_gb = torch.cat([self.conv_gamma.weight, self.conv_beta.weight],
                          dim=0) * self.gain
         gb = conv2d_resample(actv, _hwio(w_gb.to(actv.dtype)), f=None,
                              padding=1, flip_weight=True)
-        gamma, beta = gb.chunk(2, dim=-1)
-        return normalized * (1 + gamma) + beta
+        if act is not None:
+            return spade_norm_act(x, gb, *act, stats=stats)
+        return spade_norm(x, gb)
 
 
 class SpadeResBlock(nn.Module):
@@ -206,10 +222,19 @@ class SpadeResBlock(nn.Module):
         self.spade1 = SpadeNormBlock(spade_channels, out_channels)
 
     def forward(self, x, denorm_feat):
+        # each conv's relu pre-activation runs fused into the SPADE norm
+        # before it (the convs have no bias); spade_skip and spade0 share
+        # the moments of x
         x = self.conv(x, no_act=True)
-        y = self.skip(self.spade_skip(x, denorm_feat), gain=math.sqrt(0.5))
-        x = self.conv0(self.spade0(x, denorm_feat))
-        x = self.conv1(self.spade1(x, denorm_feat), gain=math.sqrt(0.5))
+        stats = spade_norm_stats(x)
+        y = self.skip(self.spade_skip(x, denorm_feat,
+                                      self.skip.act_args(math.sqrt(0.5)),
+                                      stats), no_act=True)
+        x = self.conv0(self.spade0(x, denorm_feat, self.conv0.act_args(),
+                                   stats), no_act=True)
+        x = self.conv1(self.spade1(x, denorm_feat,
+                                   self.conv1.act_args(math.sqrt(0.5))),
+                       no_act=True)
         return y + x
 
 

@@ -7,6 +7,8 @@ it on the card with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -934,3 +936,225 @@ def test_upfirdn2d_serving_forward(cuda, fashion_g):
         assert shape[0] in (8, 16)
         n = _fir_three_ways(cuda, shape, f, p, torch.float32)
         assert n == (1, 2, 0)
+
+
+# --------------------------------------------------------------------------
+# spade_norm: SPADE's normalisation with the next conv's pre-activation
+# (csrc/spade_norm.cu) against its plain chain on the card, fp32. Forward
+# and dgb: 1e-5 of the scale (the moments summed in another order). The
+# gradients are compared away from the relu and clamp kinks, where the two
+# routes may round z or u to either side and an element's gradient is
+# O(|dy|) on one route and 0 on the other (under 1e-3 of the values lie
+# there); dx to 1e-4 of its scale, since every such element also moves
+# its (n, c)'s two sums over H x W by O(|dy|) / (H W).
+
+
+def _sn():
+    import importlib
+
+    return importlib.import_module("pasta_tpu_torch.ops.spade_norm")
+
+
+def _sn_inputs(cuda, shape, layout, seed=0):
+    """x [n, h, w, c], gb [n, h, w, 2c] (NHWC-contiguous as K1 writes it,
+    or the permuted view of an NCHW tensor as F.conv2d leaves it) and dy,
+    drawn on the card."""
+    n, h, w, c = shape
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=cuda) * 3 + 1
+    if layout == "nhwc":
+        gb = torch.randn((n, h, w, 2 * c), generator=gen, device=cuda)
+    else:
+        gb = torch.randn((n, 2 * c, h, w), generator=gen,
+                         device=cuda).permute(0, 2, 3, 1)
+    dy = torch.randn(shape, generator=gen, device=cuda)
+    return x, gb * 0.5, dy
+
+
+def _sn_run(x, gb, dy, gain, clamp, fn=None):
+    sn = _sn()
+    # (detach keeps gb's strides, where clone would make a sliced gb dense)
+    xa, gba = x.detach().requires_grad_(), gb.detach().requires_grad_()
+    y = (fn or sn.spade_norm_act)(xa, gba, gain, clamp)
+    y.backward(dy)
+    return y.detach(), xa.grad, gba.grad
+
+
+def _sn_kinks(x, gb, gain, clamp):
+    """Where z (the affine's output) or u (after relu and gain) lies within
+    1e-4 of a kink, from float64 moments."""
+    x64, gb64 = x.double(), gb.double()
+    c = x.shape[-1]
+    mean = x64.mean(dim=(1, 2), keepdim=True)
+    var = (x64 - mean).square().mean(dim=(1, 2), keepdim=True)
+    z = (x64 - mean) / torch.sqrt(var + 1e-5) * (1 + gb64[..., :c]) \
+        + gb64[..., c:]
+    u = z.clamp_min(0) * gain
+    return (z.abs() < 1e-4) | ((u - clamp).abs() < 1e-4 * clamp)
+
+
+def _sn_close(got, want, tol, keep=None):
+    scale = want.abs().max().item()
+    diff = (got - want).abs()
+    if keep is not None:
+        diff = diff[keep]
+    assert diff.max().item() <= tol * scale, (diff.max().item(), scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,layout", [((8, 512, 512, 64), "nhwc"),
+                                          ((8, 256, 256, 128), "nhwc"),
+                                          ((8, 256, 256, 128), "nchw")])
+def test_spade_norm_matches_plain(cuda, shape, layout):
+    """At the serving shapes (texture_b512's 64 channels, spade_b256's
+    128; a serving batch and G's backward hand both an NHWC gb) and with
+    an NCHW-backed gb (a permuted F.conv2d output, read along W): forward,
+    dx and dgb against autograd through the plain chain; one kernel launch
+    a forward apply, three a backward, none plain."""
+    sn = _sn()
+    x, gb, dy = _sn_inputs(cuda, shape, layout)
+    gain, clamp = math.sqrt(2.0), 256.0 * math.sqrt(0.5)
+    before = (sn.spade_norm_act.launches, sn.spade_norm_act.launches_bwd,
+              sn.spade_norm_act.launches_plain)
+    y, dx, dgb = _sn_run(x, gb, dy, gain, clamp)
+    torch.cuda.synchronize()
+    assert (sn.spade_norm_act.launches - before[0],
+            sn.spade_norm_act.launches_bwd - before[1],
+            sn.spade_norm_act.launches_plain - before[2]) == (3, 3, 0)
+    assert y.is_contiguous() and dx.is_contiguous()
+    yr, dxr, dgbr = _sn_run(x, gb, dy, gain, clamp,
+                            fn=sn.spade_norm_act_plain)
+    _sn_close(y, yr, 1e-5)
+    kinks = _sn_kinks(x, gb, gain, clamp)
+    assert kinks.float().mean().item() < 1e-3
+    _sn_close(dgb, dgbr, 1e-5, ~torch.cat([kinks, kinks], dim=-1))
+    _sn_close(dx, dxr, 1e-4, ~kinks)
+    del x, gb, dy
+
+
+# Odd calls: ragged tiles along W, one row, one image, C of 4 and 8 (one
+# or two vectors a pixel) and 256, no clamp, a gb that needs a copy, and a
+# dy that is a pad's gradient (strided NHWC, read in place) or an NCHW
+# view (copied).
+_SN_ODD = [
+    ((1, 1, 37, 4), "nhwc", "contiguous", None),
+    ((2, 5, 70, 8), "nchw", "nchw", 1.5),
+    ((3, 9, 33, 256), "nchw", "padded", 20.0),
+    ((2, 3, 130, 64), "sliced", "padded", 2.0),
+    ((1, 17, 16, 128), "nhwc", "nchw", 3.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(_SN_ODD)))
+def test_spade_norm_odd_calls_match_plain(cuda, case):
+    sn = _sn()
+    shape, layout, dy_layout, clamp = _SN_ODD[case]
+    n, h, w, c = shape
+    x, gb, dy = _sn_inputs(cuda, shape, "nchw" if layout == "nchw"
+                           else "nhwc", seed=case)
+    if layout == "sliced":      # channel offset 1: neither layout
+        wide = torch.randn((n, h, w, 2 * c + 1), device=cuda)
+        wide[..., 1:] = gb
+        gb = wide[..., 1:]
+    if dy_layout == "padded":
+        dy = torch.nn.functional.pad(dy, (0, 0, 1, 1, 1, 1))[:, 1:-1, 1:-1]
+    elif dy_layout == "nchw":
+        dy = dy.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    y, dx, dgb = _sn_run(x, gb, dy, 1.3, clamp)
+    yr, dxr, dgbr = _sn_run(x, gb, dy, 1.3, clamp,
+                            fn=sn.spade_norm_act_plain)
+    _sn_close(y, yr, 1e-5)
+    kinks = _sn_kinks(x, gb, 1.3, float("inf") if clamp is None else clamp)
+    _sn_close(dgb, dgbr, 1e-5, ~torch.cat([kinks, kinks], dim=-1))
+    _sn_close(dx, dxr, 1e-4, ~kinks)
+
+
+@pytest.mark.cuda
+def test_spade_norm_repeats_bit_for_bit(cuda):
+    """No atomics, fixed merge orders: two runs give the same bits, forward
+    and backward, in both gb layouts."""
+    for shape, layout in (((8, 256, 256, 128), "nchw"),
+                          ((4, 512, 512, 64), "nhwc")):
+        x, gb, dy = _sn_inputs(cuda, shape, layout, seed=11)
+        first = _sn_run(x, gb, dy, 1.0, 181.0)
+        second = _sn_run(x, gb, dy, 1.0, 181.0)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_spade_norm_in_a_cuda_graph(cuda):
+    """The moments shared by two applies, captured into a CUDA graph with
+    no call that waits for the card (set_sync_debug_mode("error")), then
+    replayed on new inputs: the eager result bit for bit; a captured
+    launch is not counted."""
+    sn = _sn()
+    x, gb, _ = _sn_inputs(cuda, (8, 256, 256, 128), "nchw", seed=12)
+    x2, gb2, _ = _sn_inputs(cuda, (8, 256, 256, 128), "nchw", seed=13)
+    sx, sgb = x.clone(), gb.clone()
+
+    def step():
+        stats = sn.spade_norm_stats(sx)
+        return (sn.spade_norm_act(sx, sgb, 1.0, 181.0, stats=stats),
+                sn.spade_norm_act(sx, sgb, 1.4, None, stats=stats))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.no_grad():
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = sn.spade_norm_act.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad(), torch.cuda.graph(graph):
+            outs = step()
+        sx.copy_(x2)
+        sgb.copy_(gb2)
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert sn.spade_norm_act.launches == before
+    with torch.no_grad():
+        stats = sn.spade_norm_stats(x2)
+        want = (sn.spade_norm_act(x2, gb2, 1.0, 181.0, stats=stats),
+                sn.spade_norm_act(x2, gb2, 1.4, None, stats=stats))
+    for got, ref in zip(outs, want):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16_res", [0, 3])
+def test_spade_norm_generator_forward(cuda, fashion_g, bf16_res):
+    """One serving forward at batch 8, run eagerly as a one-card mesh runs
+    it: in fp32 the three SPADE res-blocks launch 2 + 2 moments kernels and
+    three applies each (21) and take the plain chain never; with the top
+    three resolutions in bf16 all nine calls take the chain."""
+    from pasta_tpu_torch.serving import TryonPipeline
+
+    sn = _sn()
+    pipe = TryonPipeline(fashion_g[bf16_res], mode="upper", mesh=[cuda])
+    items = _graph_items(pipe, 8, tiled=True)
+    before = (sn.spade_norm_act.launches, sn.spade_norm_act.launches_plain)
+    with pipe:
+        out = pipe.run_batch(items)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    want = (21, 0) if bf16_res == 0 else (0, 9)
+    assert (sn.spade_norm_act.launches - before[0],
+            sn.spade_norm_act.launches_plain - before[1]) == want
+
+
+@pytest.mark.cuda
+def test_spade_norm_second_backward_raises(cuda):
+    sn = _sn()
+    x, gb, _ = _sn_inputs(cuda, (2, 8, 8, 64), "nhwc", seed=14)
+    x.requires_grad_()
+    gb.requires_grad_()
+    y = sn.spade_norm_act(x, gb, 1.0, None)
+    (dx,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dx.sum().backward()
